@@ -1,0 +1,245 @@
+"""Shared training runtime for DSL-based models.
+
+Builds the train / test / predict step functions for a
+:class:`~h2gcn_tpu_torch.nn.model.NetworkModel` and wires the callback-based
+epoch protocol: step closures in ``args.objects``, post-epoch early
+stopping, best-validation selection and checkpoints, and the post-train
+restore of the best state. The JAX package's ``_runtime`` on one device;
+its blocked (``--epochs_per_block``) and distributed (``--mesh_shards``)
+paths are not ported yet.
+
+PyTorch updates parameters in place, so the best state is a copy
+(:func:`snapshot`) where the JAX package kept a reference to an immutable
+pytree.
+"""
+
+from __future__ import annotations
+
+import copy
+import operator
+
+import torch
+
+from ..modules import controller, logger, monitor
+from ..nn.metrics import masked_accuracy, masked_softmax_cross_entropy
+
+
+class KerasAdam(torch.optim.Optimizer):
+    """Adam with keras's update rule.
+
+    keras folds the bias corrections into the step size,
+    ``alpha_t = lr*sqrt(1-b2^t)/(1-b1^t); p -= alpha_t * m/(sqrt(v)+eps)``,
+    so its epsilon meets the uncorrected ``sqrt(v)``. ``torch.optim.Adam``
+    corrects m and v first and adds eps after, which shifts the per-step
+    losses away from the executed reference (the golden dynamics test).
+    eps is keras's 1e-7. ``alpha_t`` is computed in float32, as the JAX
+    package does.
+    """
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("KerasAdam.step takes no closure")
+        for group in self.param_groups:
+            lr, b1, b2, eps = group["lr"], group["b1"], group["b2"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["m"] = torch.zeros_like(p)
+                    st["v"] = torch.zeros_like(p)
+                st["count"] += 1
+                t = torch.tensor(float(st["count"]), dtype=torch.float32)
+                alpha = lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+                g = p.grad
+                st["m"] = b1 * st["m"] + (1.0 - b1) * g
+                st["v"] = b2 * st["v"] + (1.0 - b2) * g * g
+                p.add_(-alpha.to(p.device) * st["m"]
+                       / (torch.sqrt(st["v"]) + eps))
+
+
+def get_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
+    if name.lower() != "adam":
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet (ROADMAP A5); use adam")
+    return KerasAdam(params, lr)
+
+
+def snapshot(model, optimizer) -> dict:
+    """A copy of the training state: ``{"params", "opt_state"}``."""
+    return {"params": {k: v.detach().clone()
+                       for k, v in model.state_dict().items()},
+            "opt_state": copy.deepcopy(optimizer.state_dict())}
+
+
+def restore(model, optimizer, state) -> None:
+    model.load_state_dict(state["params"])
+    optimizer.load_state_dict(state["opt_state"])
+
+
+def update_best_val_stats(args, epoch_stats, epoch, ckpt=None) -> bool:
+    """Apply the best-val-criteria comparison and update the best record
+    (ties go to the later epoch)."""
+    op = operator.ge if args.best_val_criteria == "val_acc" else operator.le
+    best = args.objects["best_val_stats"]
+    if best is None or op(
+        float(epoch_stats[args.best_val_criteria]),
+        float(best[args.best_val_criteria]),
+    ):
+        new_best = dict(epoch_stats)
+        new_best["epoch"] = epoch
+        new_best["ckpt"] = ckpt
+        args.objects["best_val_stats"] = new_best
+        return True
+    return False
+
+
+def initialize_model(args, model, optimizer_name, lr, early_stopping,
+                     seed=None, es_metric="val_loss"):
+    """Initialize parameters and the optimizer and register the step
+    functions and callbacks in ``args.objects``.
+
+    ``early_stopping`` is an int window (sliding mean on ``es_metric``) or
+    a controller instance. Parameters are drawn from a CPU generator seeded
+    with ``seed``; dropout draws from a generator on the run's device
+    seeded with ``seed + 1``.
+    """
+    if (getattr(args, "_mesh_shards", 0) or 0) > 1:
+        raise NotImplementedError(
+            "--mesh_shards: the distributed runtime is not ported yet "
+            "(ROADMAP A9)")
+    if (getattr(args, "_epochs_per_block", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--epochs_per_block: blocked epochs are not ported yet "
+            "(ROADMAP A5)")
+    tensors = args.objects["tensors"]
+    dataset = args.objects["dataset"]
+    num_hops = len(tensors.get("adj_hops", [])) or 1
+    seed = seed if seed is not None else getattr(args, "random_seed", 123) or 123
+    device = tensors["features"].device
+
+    model.init(dataset.feature_dim, num_hops,
+               torch.Generator().manual_seed(seed), device)
+    optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
+    drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def train_step(adj, adj_hops, features, y_train, train_mask, **kwargs):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(adj, features, adj_hops, training=True,
+                       generator=drop_gen)
+        loss = model.loss(logits, y_train, train_mask)
+        loss.backward()
+        if args.grad_monitor:
+            monitor.grad_monitor(model)
+        optimizer.step()
+        return dict(train_loss=loss.detach())
+
+    @torch.no_grad()
+    def test_step(adj, adj_hops, features, y_train, train_mask, y_val,
+                  val_mask, y_test, test_mask, verbose=None, **kwargs):
+        if verbose is None:
+            verbose = args.verbose
+        model.eval()
+        logits = model(adj, features, adj_hops, training=False)
+        stats = dict(
+            train_acc=masked_accuracy(logits, y_train, train_mask),
+            val_acc=masked_accuracy(logits, y_val, val_mask),
+            test_accuracy=masked_accuracy(logits, y_test, test_mask),
+            val_loss=model.loss(logits, y_val, val_mask),
+            test_loss=masked_softmax_cross_entropy(logits, y_test, test_mask),
+        )
+        stats["monitor"] = dict()
+        if args.deg_acc_monitor and verbose:
+            for scope, y_scope, scope_mask in (
+                ("train", y_train, train_mask),
+                ("val", y_val, val_mask),
+                ("test", y_test, test_mask),
+            ):
+                monitor.deg_acc_monitor(args, args.deg_acc_monitor, adj, logits,
+                                        y_scope, scope_mask, scope,
+                                        stats["monitor"])
+        return stats
+
+    @torch.no_grad()
+    def predict_step(adj, adj_hops, features, **kwargs):
+        model.eval()
+        return model(adj, features, adj_hops, training=False)
+
+    args.objects["model"] = model
+    args.objects["optimizer"] = optimizer
+    args.objects["train_step"] = train_step
+    args.objects["test_step"] = test_step
+    args.objects["predict_step"] = predict_step
+    _register_protocol(args, model, optimizer, test_step, early_stopping,
+                       es_metric)
+
+
+def _register_protocol(args, model, optimizer, test_step, early_stopping,
+                       es_metric):
+    """Wire the epoch protocol: stats printing, early stopping, best-val
+    tracking, checkpoint management."""
+    stats_printer = logger.EpochStatsPrinter()
+    args.objects["statsPrinter"] = stats_printer
+    args.objects["best_val_stats"] = None
+    args.objects["current_ckpt"] = None
+    args.objects["es_metric"] = es_metric
+    if isinstance(early_stopping, int):
+        args.objects["early_stopping"] = controller.SlidingMeanEarlyStopping(
+            early_stopping
+        )
+    else:
+        args.objects["early_stopping"] = early_stopping
+
+    def post_epoch_callback(epoch, args):
+        epoch_stats = args.objects["epoch_stats"]
+        stats_printer(epoch, epoch_stats)
+
+        if args.objects["early_stopping"](epoch_stats[es_metric]):
+            print("Early stopping...")
+            args.epochs = epoch
+
+        every_epoch = getattr(args, "_ckpt_every_epoch", False)
+        if every_epoch:
+            current_ckpt = args.objects["current_ckpt"]
+            best = args.objects["best_val_stats"]
+            if (current_ckpt is not None and best is not None
+                    and current_ckpt != best.get("ckpt")):
+                logger.remove_ckpt(args, current_ckpt)
+            args.objects["current_ckpt"] = logger.save_ckpt(
+                snapshot(model, optimizer), args, epoch, epoch_stats
+            )
+
+        prev_best = args.objects["best_val_stats"]
+        if update_best_val_stats(args, epoch_stats, epoch,
+                                 ckpt=args.objects["current_ckpt"]):
+            if every_epoch and prev_best is not None:
+                logger.remove_ckpt(args, prev_best.get("ckpt"))
+            args.objects["best_state"] = snapshot(model, optimizer)
+
+    def post_train_callback(args):
+        best = args.objects["best_val_stats"]
+        if (not args.verbose) or args.save_activations or args.save_predictions:
+            print("Restoring the best performance model")
+            if getattr(args, "_ckpt_every_epoch", False) and best.get("ckpt"):
+                state = logger.restore_ckpt(args, best["ckpt"])
+            else:
+                state = args.objects["best_state"]
+            restore(model, optimizer, state)
+            epoch_stats = test_step(**args.objects["tensors"], verbose=True)
+            best["monitor"] = epoch_stats["monitor"]
+        final_name = logger.save_ckpt(
+            snapshot(model, optimizer), args, best["epoch"], best
+        )
+        best.setdefault("ckpt", final_name)
+        print("Best performance:")
+        stats_printer.from_dict(best)
+
+    args.objects["post_epoch_callbacks"].append(post_epoch_callback)
+    args.objects["post_train_callbacks"].append(post_train_callback)

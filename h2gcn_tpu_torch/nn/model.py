@@ -1,0 +1,160 @@
+"""The network module compiled from the layer DSL.
+
+:class:`NetworkModel` is the port of ``h2gcn_tpu.nn.model.NetworkModel``
+for the layer kinds H2GCN-2 uses: dense (with or without bias), ReLU, graph
+aggregation over the hop matrices, vectorize, concat of tagged outputs, and
+dropout. Concat layers see the tagged-output table in tag creation order;
+graph layers stack one aggregate per selected hop on a new axis. Dense
+kernels keep the JAX layout ``[in, out]`` (``y = x @ kernel + bias``), so
+:func:`load_jax_params` can carry the JAX package's weights over unchanged.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..sparse import SparseMatrix, spmm
+from .dsl import Layer
+from .metrics import masked_softmax_cross_entropy
+from .ops import dropout
+
+_SUPPORTED = (Layer.DENSE, Layer.DROPOUT, Layer.GCN, Layer.RELU,
+              Layer.VECTORIZE, Layer.CONCAT)
+_NAMES = {Layer.DENSE: "dense", Layer.DROPOUT: "dropout", Layer.GCN: "graph",
+          Layer.RELU: "relu", Layer.VECTORIZE: "flatten",
+          Layer.CONCAT: "concat"}
+
+
+class NetworkModel(nn.Module):
+    """A layer program plus its parameters. Call :meth:`init` once with the
+    input width before the first forward."""
+
+    def __init__(self, layer_setups, l2_regularize_weight: float = 0.0):
+        super().__init__()
+        self.layer_setups = [(kind, dict(conf)) for kind, conf in layer_setups]
+        self.l2_regularize_weight = float(l2_regularize_weight)
+        self.tags: Dict[int, str] = {}
+        self.names: List[str] = []
+        for ind, (kind, conf) in enumerate(self.layer_setups):
+            if kind not in _SUPPORTED:
+                raise NotImplementedError(
+                    f"layer kind {kind!r} is not ported to h2gcn_tpu_torch "
+                    "yet (ROADMAP A4)")
+            tag = conf.pop("tag", None)
+            if tag:
+                self.tags[ind] = tag
+            self.names.append(_NAMES[kind])
+        self.kernels = nn.ParameterDict()
+        self.biases = nn.ParameterDict()
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_setups)
+
+    # ------------------------------------------------------------------ init
+    def init(self, input_dim: int, num_hops: int, generator: torch.Generator,
+             device="cpu") -> "NetworkModel":
+        """Create the parameters by running a 4-node dummy forward on the
+        CPU: glorot-uniform kernels drawn from ``generator`` in layer order,
+        zero biases. Then move them to ``device``."""
+        import scipy.sparse as sp
+
+        n = 4
+        eye = SparseMatrix.from_scipy(sp.eye(n, format="csr", dtype=np.float32),
+                                      backend="segment")
+        x = torch.zeros(n, input_dim, dtype=torch.float32)
+        with torch.no_grad():
+            self._forward(eye, x, [eye] * max(1, num_hops), training=False,
+                          generator=None, init_gen=generator)
+        return self.to(device)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, adj: SparseMatrix, x: torch.Tensor,
+                adjhops: Sequence[SparseMatrix], *, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                capture: Optional[dict] = None) -> torch.Tensor:
+        """Logits for every node. ``generator`` drives dropout in training;
+        ``capture`` (a dict) receives every layer's output under
+        ``activations/<ind>-<name>``."""
+        return self._forward(adj, x, adjhops, training=training,
+                             generator=generator, capture=capture)
+
+    def _forward(self, adj, x, adjhops, *, training, generator,
+                 capture=None, init_gen=None):
+        tagged: Dict[str, torch.Tensor] = {}
+        if capture is not None:
+            capture["inputs/inputs"] = x
+        for ind, (kind, conf) in enumerate(self.layer_setups):
+            key = str(ind)
+            if kind == Layer.DENSE:
+                if init_gen is not None:
+                    fan_in, fan_out = x.shape[-1], conf["units"]
+                    limit = math.sqrt(6.0 / (fan_in + fan_out))
+                    w = (torch.rand(fan_in, fan_out, generator=init_gen) * 2
+                         - 1) * limit
+                    self.kernels[key] = nn.Parameter(w)
+                    if conf["use_bias"]:
+                        self.biases[key] = nn.Parameter(torch.zeros(fan_out))
+                x = torch.matmul(x, self.kernels[key])
+                if key in self.biases:
+                    x = x + self.biases[key]
+            elif kind == Layer.DROPOUT:
+                x = dropout(x, conf["dropout_rate"], generator,
+                            training=training)
+            elif kind == Layer.GCN:
+                hops = conf.get("hops")
+                x = torch.stack([spmm(a, x) for h, a in enumerate(adjhops)
+                                 if hops is None or h in hops], dim=-2)
+            elif kind == Layer.RELU:
+                x = torch.relu(x)
+            elif kind == Layer.VECTORIZE:
+                x = x.reshape(x.shape[0], -1)
+            elif kind == Layer.CONCAT:
+                selected = [v for t, v in tagged.items() if t in conf["tags"]]
+                if conf.get("addInputs", True):
+                    selected = [x] + selected
+                x = torch.cat(selected, dim=-1)
+            if capture is not None:
+                capture[f"activations/{ind}-{self.names[ind]}"] = x
+            if ind in self.tags:
+                tagged[self.tags[ind]] = x
+        return x
+
+    # ------------------------------------------------------------------ loss
+    def l2_loss(self) -> torch.Tensor:
+        """keras-style l2: ``weight * sum(kernel^2)`` over dense kernels
+        (biases excluded), with an optional per-layer ``l2_scale``."""
+        total = 0.0
+        for key, w in self.kernels.items():
+            scale = self.layer_setups[int(key)][1].get("l2_scale", 1.0)
+            if scale:
+                total = total + scale * torch.sum(torch.square(w))
+        return self.l2_regularize_weight * total
+
+    def loss(self, logits, labels, mask) -> torch.Tensor:
+        return masked_softmax_cross_entropy(logits, labels, mask) + self.l2_loss()
+
+
+def load_jax_params(model: NetworkModel, params) -> NetworkModel:
+    """Load the JAX ``NetworkModel``'s parameter list (one dict per layer,
+    ``{"kernel", "bias"}`` as numpy arrays) into an initialized port model,
+    so both packages compute the same function."""
+    with torch.no_grad():
+        for ind, p in enumerate(params):
+            for name, store in (("kernel", model.kernels), ("bias", model.biases)):
+                if not isinstance(p, dict) or name not in p:
+                    continue
+                key = str(ind)
+                if key not in store:
+                    raise KeyError(f"layer {ind} has no {name} in the port model")
+                src = torch.from_numpy(np.array(p[name], dtype=np.float32))
+                if tuple(src.shape) != tuple(store[key].shape):
+                    raise ValueError(f"layer {ind} {name}: {tuple(src.shape)} "
+                                     f"!= {tuple(store[key].shape)}")
+                store[key].copy_(src)
+    return model

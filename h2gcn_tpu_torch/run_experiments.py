@@ -1,0 +1,179 @@
+"""Training entry point.
+
+``python -m h2gcn_tpu_torch.run_experiments <MODEL> <DATAFMT> --dataset ...``
+
+The epoch protocol of the JAX package's CLI: pretrain callbacks, then per
+epoch train_step and test_step merging their stat dicts, pre/post-epoch
+callbacks, and post-train callbacks, all driven through ``args.objects``
+closures so model and dataset plugins stay decoupled from the loop.
+
+It runs on ``--device cuda`` (the default) and raises when no GPU is
+present; the CPU runs only when asked for with ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+from . import datasets, models
+from .modules import arguments, checkpoint, logger, monitor
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device. ``cuda`` raises without a GPU (nothing falls back
+    to the CPU) and turns TF32 off: matmuls run in full f32, the
+    ``highest`` precision of the JAX package."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise ValueError(f"unknown device {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA GPU is available; pass "
+                           "--device cpu to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def steady_epoch_ms(times):
+    """(mean, median) milliseconds per epoch over every epoch after the
+    first, which also builds and warms up; the mean is the epoch-time
+    metric (a stall in any epoch moves it)."""
+    steady = times[1:] or times
+    return 1e3 * statistics.fmean(steady), 1e3 * statistics.median(steady)
+
+
+def main(argv=None):
+    parser = arguments.create_parser()
+    parser.add_argument("--random_seed", type=int, default=123)
+    parser.add_argument("--interactive", "-i", action="store_true",
+                        dest="_interactive",
+                        help="Drop into IPython after training")
+    parser.add_argument("--restore_checkpoint", type=str, default=None,
+                        dest="_restore_checkpoint",
+                        help="Path to a ckpt.pt (or its directory) to "
+                             "resume training from")
+    parser.add_argument("--epochs", type=int, default=2000,
+                        help="(default: %(default)s)")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        dest="_device",
+                        help="Device of the run (default: %(default)s)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        dest="_profile_dir",
+                        help="Write a torch.profiler trace of epochs 3-5 here")
+    parser.add_argument("--timing", action="store_true", dest="_timing",
+                        help="Record per-epoch wall time and edges/s")
+    parser.add_argument("--epochs_per_block", type=int, default=1,
+                        dest="_epochs_per_block",
+                        help="Not ported yet: must be 1")
+    parser.add_argument("--mesh_shards", type=int, default=0,
+                        dest="_mesh_shards",
+                        help="Not ported yet: must be 0 or 1")
+
+    known_args, _ = parser.parse_known_args(argv)
+    device = resolve_device(known_args._device)
+
+    models.add_subparsers(parser, argv)
+    datasets.add_subparsers(parser, argv)
+    logger.add_subparser_args(parser)
+    monitor.add_subparser_args(parser)
+
+    args = arguments.parse_args(parser, argv)
+
+    if getattr(args, "_restore_checkpoint", None) and "model" in args.objects:
+        from .models._runtime import restore
+
+        state = checkpoint.load_state(args._restore_checkpoint)
+        restore(args.objects["model"], args.objects["optimizer"], state)
+        print(f"===> Resumed training state from {args._restore_checkpoint}")
+
+    for func in args.objects["pretrain_callbacks"]:
+        func(**args.objects["tensors"])
+
+    timing = getattr(args, "_timing", False)
+    nnz_per_epoch = 0
+    if timing:
+        hops = args.objects["tensors"].get("adj_hops")
+        nnz_per_epoch = sum(getattr(h, "nnz", 0) for h in hops or [])
+        args.objects["epoch_times"] = []
+    profile_dir = getattr(args, "_profile_dir", None)
+    profiler = None
+
+    args.current_epoch = 0
+    while args.current_epoch < args.epochs:
+        args.current_epoch += 1
+        if profile_dir and args.current_epoch == 3:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        t_epoch = time.perf_counter()
+        for func in args.objects["pre_epoch_callbacks"]:
+            func(args.current_epoch, args)
+        args.objects["epoch_stats"] = dict()
+        args.objects["epoch_stats"].update(
+            args.objects["train_step"](**args.objects["tensors"])
+        )
+        args.objects["epoch_stats"].update(
+            args.objects["test_step"](**args.objects["tensors"])
+        )
+        if timing:
+            # the steps return before the device finishes: wait for it
+            _sync(device)
+            dt = time.perf_counter() - t_epoch
+            args.objects["epoch_times"].append(dt)
+            args.objects["epoch_stats"]["epoch_time_s"] = dt
+            if nnz_per_epoch:
+                # 2 forward passes (train+eval) + backward = 3 aggregations
+                args.objects["epoch_stats"]["agg_edges_per_s"] = (
+                    3 * nnz_per_epoch / dt
+                )
+        if profiler is not None and args.current_epoch >= 5:
+            _stop_profiler(profiler, profile_dir, device)
+            profiler = profile_dir = None
+        for func in args.objects["post_epoch_callbacks"]:
+            func(args.current_epoch, args)
+        while (args.current_epoch >= args.epochs
+               and len(args.objects["post_train_callbacks"]) > 0):
+            func = args.objects["post_train_callbacks"].popleft()
+            func(args)
+
+    if profiler is not None:
+        # the run ended before epoch 5 (short run or early stop)
+        _stop_profiler(profiler, profile_dir, device)
+
+    if timing and args.objects.get("epoch_times"):
+        mean_ms, median_ms = steady_epoch_ms(args.objects["epoch_times"])
+        print(f"===> Timing: {len(args.objects['epoch_times'])} epochs, "
+              f"{mean_ms:.2f} ms/epoch after the first "
+              f"(median {median_ms:.2f}; first epoch "
+              f"{1e3 * args.objects['epoch_times'][0]:.1f} ms)")
+    if getattr(args, "_interactive", False):
+        import IPython
+
+        IPython.embed()
+    return args
+
+
+def _stop_profiler(profiler, profile_dir, device):
+    from pathlib import Path
+
+    _sync(device)
+    profiler.stop()
+    path = Path(profile_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    profiler.export_chrome_trace(str(path / "trace.json"))
+    print(f"===> Profiler trace written to {path}")
+
+
+if __name__ == "__main__":
+    main()

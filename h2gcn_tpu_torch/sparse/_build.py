@@ -1,0 +1,102 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources in ``h2gcn_tpu_torch/csrc/*.cu`` include no PyTorch header and
+export plain ``extern "C"`` launchers. At first use they are compiled by one
+``nvcc`` call into ``h2gcn_tpu_torch/_build/libh2gcn_kernels_<hash>.so``
+(``<hash>`` covers the sources' contents, so an edit rebuilds) and loaded
+with :mod:`ctypes`. Nothing here runs at import time: a CPU-only machine
+imports the port without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argument types; every pointer and the stream are c_void_p, or
+# ctypes would pass them as 32-bit ints and cut them
+_SIGNATURES = {
+    "h2gcn_gscatter_spmm": [_P, _P, _P, _P, _P, _I, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _P],
+    "h2gcn_bsr_spmm": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([cuda_home] if cuda_home else []) + ["/usr/local/cuda"]:
+        cand = Path(root) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libh2gcn_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+    """Build the kernels if this source hash has no library yet; load it.
+
+    Returns ``(lib, build_seconds)``; ``build_seconds`` is 0.0 when the
+    library was already built.
+    """
+    so = library_path()
+    seconds = 0.0
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas=-v", "-o", str(tmp)] + [str(s) for s in sources()]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        (BUILD_DIR / "nvcc.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or none
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.h2gcn_error_string.argtypes = [ctypes.c_int]
+    lib.h2gcn_error_string.restype = ctypes.c_char_p
+    return lib, seconds
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a launcher returned anything but cudaSuccess (0)."""
+    if err != 0:
+        msg = lib.h2gcn_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")

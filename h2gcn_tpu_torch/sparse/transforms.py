@@ -1,0 +1,100 @@
+"""Host-side graph transforms (scipy), the port's copy of
+``h2gcn_tpu.sparse.transforms``.
+
+Symmetric / random-walk normalization with the inf->0 degree guard, diagonal
+add/remove, row normalization of features, and the exact-k-hop split used by
+H2GCN (A_k = 1[(A+I)^k > 0] - 1[(A+I)^(k-1) > 0]). Everything here runs once
+per dataset on the host; results become
+:class:`~h2gcn_tpu_torch.sparse.matrix.SparseMatrix` objects on the device.
+"""
+
+from __future__ import annotations
+
+from enum import Enum
+from typing import List
+
+import numpy as np
+import scipy.sparse as sp
+
+
+class NType(Enum):
+    ORDINARY = 0
+    SYM_NORMALIZED = 1
+    RW_NORMALIZED = 2
+    CHEBY = 3
+
+
+def normalize(adj: sp.spmatrix, ntype: NType = NType.SYM_NORMALIZED) -> sp.spmatrix:
+    """D^{-1/2} A D^{-1/2} (SYM) or D^{-1} A (RW), zero-degree guarded."""
+    if ntype == NType.ORDINARY:
+        return adj
+    deg = np.asarray(adj.sum(axis=1)).ravel()
+    with np.errstate(divide="ignore"):
+        if ntype == NType.SYM_NORMALIZED:
+            d = np.power(deg, -0.5)
+            d[np.isinf(d)] = 0.0
+            D = sp.diags(d)
+            return D @ adj @ D
+        elif ntype == NType.RW_NORMALIZED:
+            d = np.power(deg, -1.0)
+            d[np.isinf(d)] = 0.0
+            return sp.diags(d) @ adj
+    raise ValueError(f"Unsupported normalization {ntype}")
+
+
+def add_eye(adj: sp.spmatrix) -> sp.csr_matrix:
+    """Set the diagonal to 1."""
+    out = adj.tolil(copy=True)
+    out.setdiag(1)
+    return out.tocsr()
+
+
+def remove_eye(adj: sp.spmatrix) -> sp.csr_matrix:
+    """Zero the diagonal."""
+    out = adj.tolil(copy=True)
+    out.setdiag(0)
+    out = out.tocsr()
+    out.eliminate_zeros()
+    return out
+
+
+def nhood_split(adj: sp.spmatrix, nhood: int) -> List[sp.spmatrix]:
+    """Exact-hop reachability split ``[I, A1, A2, ...]``.
+
+    ``A_k[i,j] = 1`` iff the shortest path between i and j (allowing the
+    self loop added each round) is exactly k. Stops early when the reachable
+    set stops growing. The scipy boolean spgemm of the JAX package's
+    ``nhood_split``; its native (C++) and multi-worker paths are not ported.
+    """
+    if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+        raise ValueError(f"nhood_split needs a square matrix, got {adj.shape}")
+    if isinstance(nhood, float) and np.isnan(nhood):
+        return [sp.csr_matrix(np.ones(adj.shape))]
+    n = adj.shape[0]
+    a_plus_i = (adj + sp.eye(n, format="csr")).tocsr()
+    mt = sp.eye(n, format="csr")
+    out = [mt]
+    edge_sum = 0
+    i = 0
+    while i < nhood:
+        prev = mt
+        mt = mt @ a_plus_i
+        mt = (mt > 0).astype(adj.dtype)
+        new_edge_sum = mt.sum()
+        if new_edge_sum == edge_sum:
+            break
+        edge_sum = new_edge_sum
+        i += 1
+        diff = (mt - prev).tocsr()
+        diff.eliminate_zeros()
+        out.append(diff)
+    return out
+
+
+def row_normalize(features: sp.spmatrix):
+    """Row-normalize a (sparse) feature matrix; zero rows stay zero."""
+    rowsum = np.asarray(features.sum(axis=1)).ravel()
+    with np.errstate(divide="ignore"):
+        inv = np.power(rowsum, -1.0)
+    inv[np.isinf(inv)] = 0.0
+    return sp.diags(inv) @ features

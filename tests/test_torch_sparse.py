@@ -1,0 +1,102 @@
+"""spmm of the PyTorch port against the JAX package: forward and x.grad for
+the dense, segment, gscatter and bsr backends on a symmetric and a
+non-symmetric matrix (the backward then reads the transpose payload).
+On the CPU gscatter and bsr run their plain versions; JAX reduces both
+through its segment path. f32 in both, so 1e-5."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from h2gcn_tpu.sparse import SparseMatrix as JSM
+from h2gcn_tpu.sparse import spmm as jspmm
+from h2gcn_tpu_torch.sparse import SparseMatrix as TSM
+from h2gcn_tpu_torch.sparse import spmm as tspmm
+
+
+def _matrix(kind):
+    a = sp.random(400, 400, density=0.02, random_state=3, format="csr",
+                  dtype=np.float32)
+    if kind == "symmetric":
+        a = (a + a.T).tocsr()
+    return a
+
+
+@pytest.mark.parametrize("kind", ["symmetric", "nonsymmetric"])
+@pytest.mark.parametrize("backend", ["dense", "segment", "gscatter", "bsr"])
+def test_spmm_forward_and_grad_match_jax(backend, kind):
+    a = _matrix(kind)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((400, 24)).astype(np.float32)
+    w = rng.standard_normal((400, 24)).astype(np.float32)
+
+    jm = JSM.from_scipy(a, backend=backend)
+    j_y = np.asarray(jspmm(jm, jnp.asarray(x)))
+    j_g = np.asarray(jax.grad(
+        lambda v: jnp.sum(jspmm(jm, v) * jnp.asarray(w)))(jnp.asarray(x)))
+
+    tm = TSM.from_scipy(a, backend=backend)
+    assert tm.symmetric == (kind == "symmetric")
+    if kind == "nonsymmetric" and backend == "gscatter":
+        assert tm.gsc_t is not None
+    if kind == "nonsymmetric" and backend == "bsr":
+        assert tm.bsr_t is not None
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tspmm(tm, xt)
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), j_y, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), j_g, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), a @ x, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_coo_arrays_and_transpose_view_match_jax():
+    a = _matrix("nonsymmetric")
+    jm = JSM.from_scipy(a, backend="segment")
+    tm = TSM.from_scipy(a, backend="segment")
+    assert tm.nnz == jm.nnz and tm.shape == jm.shape
+    for name in ("rows", "cols", "vals", "t_perm"):
+        np.testing.assert_array_equal(getattr(tm, name).numpy(),
+                                      np.asarray(getattr(jm, name)))
+    jt, tt = jm.transpose_view(), tm.transpose_view()
+    for name in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(tt, name).numpy(),
+                                      np.asarray(getattr(jt, name)))
+    assert (tm.to_scipy() != a).nnz == 0
+
+
+def test_backend_rules():
+    a = _matrix("symmetric")
+    assert TSM.from_scipy(a).backend == "segment"  # auto on the CPU
+    for backend in ("cootile", "attn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TSM.from_scipy(a, backend=backend)
+    with pytest.raises(ValueError):
+        TSM.from_scipy(a, backend="nope")
+
+
+@pytest.mark.parametrize("backend", ["gscatter", "bsr"])
+def test_spmm_without_payload_segment_on_cpu_raises_elsewhere(backend):
+    """A kernel backend whose payload was not built reduces through
+    ``index_add_`` on the CPU, as the JAX package does, and raises on any
+    other device (here ``meta``) instead of running plain code there."""
+    a = _matrix("nonsymmetric")
+    tm = TSM.from_scipy(a, backend=backend)
+    bare = dataclasses.replace(tm, bsr=None, bsr_t=None, gsc=None,
+                               gsc_t=None)
+    x = np.random.default_rng(1).standard_normal((400, 8)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tspmm(bare, xt)
+    y.sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), a @ x, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               a.T @ np.ones((400, 8), np.float32),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="no payload"):
+        tspmm(bare, torch.empty(400, 8, device="meta"))
