@@ -22,7 +22,20 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    finite, that a checkpoint was written, and that the trained model's
    logits agree with the same weights run through the plain
    ``index_add_`` SpMM;
-5. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. holds the three GAT attention kernels (gat_fwd_stats, gat_bwd_row,
+   gat_bwd_col) against their plain versions and times them, on a
+   Cora-shaped synthetic graph (2,708 nodes, 5,429 edges, self-looped,
+   256-blocks) at both GAT layers' widths (8 heads of 8, 1 head of 7), and
+   as timing shapes on its hub-free twin and on the 10K graph forced to
+   256-blocks;
+6. trains GAT (Cora's published configuration) for 5 epochs through the
+   CLI on the Cora-shaped graph written as planetoid files, with
+   ``--fused_attention --attn_drop 0`` (training and eval launch all three
+   kernels) and with the published ``--attn_drop 0.6`` (training takes the
+   segment path, eval launches the forward kernel), and checks launches,
+   finite losses, a checkpoint, and the trained logits through the kernels
+   against the same weights through the segment path;
+7. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 """
@@ -51,13 +64,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def build_graph(n=10_000, m_edges=60_000, seed=0):
+def build_graph(n=10_000, m_edges=60_000, seed=0, skew=0.6):
     """bench.py's synthetic graph: preferential-attachment-flavored
-    endpoints, symmetric, binary, no self loops."""
+    endpoints (node i drawn with weight (i + 1) ** -skew; skew 0 draws
+    them uniformly), symmetric, binary, no self loops."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
-    w = (np.arange(n) + 1.0) ** -0.6
+    w = (np.arange(n) + 1.0) ** -skew
     w /= w.sum()
     src = rng.choice(n, size=m_edges, p=w)
     dst = rng.choice(n, size=m_edges, p=w)
@@ -108,6 +122,18 @@ def write_planetoid(path, name, adj, seed=0, n_feat=1433, feats_per_row=18,
             pickle.dump(obj, f)
     with open(os.path.join(path, f"ind.{name}.test.index"), "w") as f:
         f.write("\n".join(str(i) for i in test_idx) + "\n")
+
+
+def cora_graph(seed=1, skew=0.6):
+    """A Cora-shaped graph: 2,708 nodes, 5,429 undirected edges drawn as
+    build_graph draws them."""
+    return build_graph(n=2708, m_edges=5429, seed=seed, skew=skew)
+
+
+def self_looped(adj):
+    import scipy.sparse as sp
+
+    return ((adj + sp.eye(adj.shape[0])) > 0).astype(np.float32).tocsr()
 
 
 def time_ms(fn, iters):
@@ -317,6 +343,177 @@ def run_cli(backend, data_dir, name, device):
     return launches[kernel]
 
 
+GAT_WIDTHS = ((8, 8), (1, 7))  # (heads, features a head) of GAT's layers
+
+
+def _gat_bounds(kernel, E, n, H, F):
+    """The least work of one call at real size n and E support edges (each
+    edge read once as row and column, 8 B; the node arrays read once and
+    the outputs written once; f32 ops at the CUDA-core peak)."""
+    HF = H * F
+    if kernel == "gat_fwd_stats":
+        nbytes = E * 8 + 4 * n * (2 * H + HF) + 4 * n * (HF + 2 * H)
+        ops = E * H * (2 * F + 8)
+    elif kernel == "gat_bwd_row":
+        nbytes = E * 8 + 4 * n * (2 * H + 2 * HF + 3 * H) + 4 * n * H
+        ops = E * H * (2 * F + 8)
+    else:
+        nbytes = E * 8 + 4 * n * (2 * H + 2 * HF + 3 * H) + 4 * n * (HF + H)
+        ops = E * H * (4 * F + 8)
+    return _bound(nbytes, ops, "float32")
+
+
+def check_gat_kernels(device):
+    """Phase 5: the GAT attention kernels against their plain versions,
+    timed. Returns {kernel: [case dicts]}."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import SparseMatrix
+    from h2gcn_tpu_torch.sparse import attention as att
+
+    # the same Cora shape without hubs tells the mask scan (the same 121
+    # blocks) from the serial walk of a hub row
+    graphs = {"cora_shaped": self_looped(cora_graph()),
+              "cora_uniform": self_looped(cora_graph(skew=0.0)),
+              "syn10k": self_looped(build_graph())}
+    gen = torch.Generator(device=device).manual_seed(1)
+    results = {"gat_fwd_stats": [], "gat_bwd_row": [], "gat_bwd_col": []}
+    for gname, support in graphs.items():
+        t0 = time.perf_counter()
+        sm = SparseMatrix.from_scipy(support, backend="bsr", block_size=256,
+                                     device=device)
+        bsr, n, E = sm.bsr, support.shape[0], support.nnz
+        n_pad = bsr.n_row_blocks * bsr.block_size
+        emit({"graph": gname, "n": n, "support_nnz": E, "block_size": 256,
+              "max_row_nnz": int(np.diff(support.indptr).max()),
+              "blocks": bsr.num_blocks,
+              "mask_bytes": bsr.blocks.numel() * 4,
+              "s": time.perf_counter() - t0})
+        for H, F in GAT_WIDTHS:
+            t0 = time.perf_counter()
+            f1, f2 = (att.pad_rows(torch.randn(n, H, generator=gen,
+                                               device=device), n_pad)
+                      for _ in range(2))
+            h, g = (att.pad_rows(torch.randn(n, H * F, generator=gen,
+                                              device=device), n_pad)
+                    for _ in range(2))
+            kw = dict(num_heads=H, feat=F)
+            # the stats and D of the plain forward feed both backward passes
+            out0, m0, l0 = att.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
+            d = att.head_dots(g, out0, H, F)
+            bwd = (bsr, f1, f2, h, g, m0, l0, d)
+            calls = {
+                "gat_fwd_stats": (
+                    lambda: att.gat_fwd_stats(bsr, f1, f2, h, **kw),
+                    lambda: att.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)),
+                "gat_bwd_row": (
+                    lambda: att.gat_bwd_row(*bwd, **kw),
+                    lambda: att.gat_bwd_row_plain(*bwd, **kw)),
+                "gat_bwd_col": (
+                    lambda: att.gat_bwd_col(*bwd, **kw),
+                    lambda: att.gat_bwd_col_plain(*bwd, **kw)),
+            }
+            for kernel, (run, plain) in calls.items():
+                got, ref = run(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                torch.cuda.synchronize()
+                err, tol = 0.0, 0.0
+                for a, b in zip(got, ref):
+                    # rows without an entry keep the sentinel max exactly
+                    live = b > att.NEG_INF / 2
+                    if (a.shape != b.shape or not torch.isfinite(a).all()
+                            or not torch.equal(a[~live], b[~live])):
+                        raise AssertionError(
+                            f"{kernel} {gname} H={H} F={F}: bad output "
+                            f"{tuple(a.shape)}")
+                    e = float((a[live] - b[live]).abs().max())
+                    t = TOL * max(1.0, float(b[live].abs().max()))
+                    if e > t:
+                        emit({"kernel": kernel, "graph": gname, "H": H,
+                              "F": F, "max_abs_err": e, "tol": t})
+                        raise AssertionError(
+                            f"{kernel} disagrees with its plain version on "
+                            f"{gname} H={H} F={F}: {e} > {t}")
+                    err, tol = max(err, e), max(tol, t)
+                bound_ms, bound_by = _gat_bounds(kernel, E, n, H, F)
+                case = dict(kernel=kernel, graph=gname, n=n, support_nnz=E,
+                            H=H, F=F, max_abs_err=err, tol=tol,
+                            kernel_ms=time_ms(run, 20),
+                            plain_ms=time_ms(plain, 5),
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None,
+                            s=time.perf_counter() - t0)
+                emit(case)
+                results[kernel].append(case)
+    return results
+
+
+def run_gat_cli(data_dir, name, device, attn_drop):
+    """Phase 6: GAT for EPOCHS epochs through the CLI with
+    ``--fused_attention``. Returns the launch counts of the run."""
+    import glob
+
+    import torch
+
+    from h2gcn_tpu_torch import run_experiments
+    from h2gcn_tpu_torch.sparse import attention as att
+
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(data_dir, f"ckpt_gat_{attn_drop}")
+    argv = ["GAT", "planetoid", "--dataset", f"ind.{name}",
+            "--dataset_path", data_dir, "--fused_attention",
+            "--attn_drop", str(attn_drop), "--epochs", str(EPOCHS),
+            "--timing", "--random_seed", "123", "--checkpoint_dir", ckpt_dir]
+    counters = (att.gat_fwd_stats, att.gat_bwd_row, att.gat_bwd_col)
+    for fn in counters:
+        fn.launches = 0
+    args = run_experiments.main(argv)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    # attention dropout needs per-edge alpha: training then takes the
+    # segment path, and only the evaluations run the forward kernel
+    trains_fused = attn_drop == 0
+    for kernel, count in launches.items():
+        if (count > 0) != (trains_fused or kernel == "gat_fwd_stats"):
+            raise AssertionError(f"GAT --attn_drop {attn_drop}: {kernel} "
+                                 f"launched {count} times")
+    stats = args.objects["epoch_stats"]
+    for key in ("train_loss", "val_loss", "test_loss"):
+        if not np.isfinite(float(stats[key])):
+            raise AssertionError(f"GAT: {key} = {float(stats[key])}")
+    if not glob.glob(os.path.join(ckpt_dir, "*", "ckpt.pt")):
+        raise AssertionError(f"GAT: no checkpoint under {ckpt_dir}")
+
+    # the trained weights through the kernels and through the segment path
+    tensors = args.objects["tensors"]
+    model = args.objects["model"]
+    with torch.no_grad():
+        logits = args.objects["predict_step"](**tensors)
+        model.fused_attention = False
+        ref = model(tensors["adj"], tensors["features"], [])
+        model.fused_attention = True
+    n, n_classes = tensors["y_all"].shape
+    if tuple(logits.shape) != (n, n_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"GAT: bad logits {tuple(logits.shape)}")
+    logit_err = float((logits - ref).abs().max())
+    logit_tol = TOL * max(1.0, float(ref.abs().max()))
+    if logit_err > logit_tol:
+        raise AssertionError(f"GAT: logits through the kernels differ from "
+                             f"the segment path by {logit_err} > {logit_tol}")
+    times = args.objects["epoch_times"]
+    epoch_ms, epoch_ms_median = run_experiments.steady_epoch_ms(times)
+    emit({"cli": "GAT", "attn_drop": attn_drop, "epochs": len(times),
+          "support_nnz": tensors["adj"].nnz,
+          "epoch_ms": epoch_ms, "epoch_ms_median": epoch_ms_median,
+          "first_epoch_ms": 1e3 * times[0],
+          "final_train_loss": float(stats["train_loss"]),
+          "final_val_acc": float(stats["val_acc"]),
+          "launches": launches, "logit_err": logit_err,
+          "logit_tol": logit_tol, "s": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -356,20 +553,42 @@ def main() -> int:
         emit({"phase": "planetoid", "s": time.perf_counter() - t0})
         launches = {f"{b}_spmm": run_cli(b, data_dir, "syn10k", device)
                     for b in ("gscatter", "bsr")}
+
+        t0 = time.perf_counter()
+        gat_cases = check_gat_kernels(device)
+        cases.update(gat_cases)
+        emit({"phase": "gat_kernels", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        write_planetoid(data_dir, "syncora", cora_graph())
+        launches.update(run_gat_cli(data_dir, "syncora", device, 0))
+        run_gat_cli(data_dir, "syncora", device, 0.6)
+        emit({"phase": "gat_cli", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
     sources = {"gscatter_spmm": ("h2gcn_tpu_torch/csrc/gscatter.cu",
                                  "h2gcn_tpu/sparse/pallas_gscatter.py:251"),
                "bsr_spmm": ("h2gcn_tpu_torch/csrc/bsr_spmm.cu",
-                            "h2gcn_tpu/sparse/pallas_spmm.py:34")}
+                            "h2gcn_tpu/sparse/pallas_spmm.py:34"),
+               "gat_fwd_stats": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+                                 "h2gcn_tpu/sparse/pallas_attention.py:143"),
+               "gat_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+                               "h2gcn_tpu/sparse/pallas_attention.py:300"),
+               "gat_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+                               "h2gcn_tpu/sparse/pallas_attention.py:326")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        # the headline shape: A2, F=128, highest, forward
-        head = next(c for c in cases[name]
-                    if c["matrix"] == "A2" and c["F"] == 128
-                    and c["precision"] == "highest"
-                    and c["direction"] == "forward")
+        if name in gat_cases:
+            # the headline shape: the Cora-shaped graph at layer 1's width
+            head = next(c for c in cases[name]
+                        if c["graph"] == "cora_shaped" and c["H"] == 8)
+        else:
+            # the headline shape: A2, F=128, highest, forward
+            head = next(c for c in cases[name]
+                        if c["matrix"] == "A2" and c["F"] == 128
+                        and c["precision"] == "highest"
+                        and c["direction"] == "forward")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

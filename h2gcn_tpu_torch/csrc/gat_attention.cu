@@ -1,0 +1,425 @@
+// Fused multi-head graph attention over a BSR mask for Hopper: the forward
+// with its softmax statistics, the row backward pass and the column
+// backward pass.
+//
+// Replaces the TPU kernels of h2gcn_tpu/sparse/pallas_attention.py:
+//   gat_fwd        _make_fwd_stats_kernel / _make_kernel (_fwd_stats_call)
+//   gat_bwd_row    _make_bwd_row_kernel / _bwd_row_update (pass R)
+//   gat_bwd_col    _make_bwd_col_kernel / _bwd_col_update (pass C)
+// and reads the tables of h2gcn_tpu_torch/sparse/matrix.py:_build_bsr: dense
+// B x B f32 mask blocks sorted by (block row, block column), row_ptr over
+// them, and colmajor_order / col_ptr for the column pass. Every edge (i, j)
+// of the mask is a block entry > 0. For each head k, with F features a head:
+//   e_ij   = LeakyReLU_slope(f1[i,k] + f2[j,k])
+//   out_i  = sum_j alpha_ij h_j,  alpha_ij = exp(e_ij - m_i) / max(l_i, 1e-16)
+//   df1_i  = sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij
+//   dh_j   = sum_i alpha_ij g_i,  df2_j = sum_i alpha_ij (g_i . h_j - D_i) leaky'_ij
+// where m_i is the row max of e, l_i the row sum of exp(e - m_i), and
+// D_i = g_i . out_i (computed by the caller).
+//
+// What bounds it on the H100: the mask. Each B x B f32 block is 256 KB at
+// B = 256 and must be scanned for its few entries, while the attention
+// itself is O(edges * H * F) flops on O(edges) gathered rows. So these
+// kernels are bound by the bytes of the mask payload (31.7 MB for Cora's
+// 121 blocks, which fits the 50 MB L2), far above the least work of the
+// attention that chip_smoke.py reports as the bound.
+//
+// Design. Nothing is carried between thread blocks: one warp owns one
+// destination row i (forward, row pass) or one source column j (column
+// pass) and keeps that row's running state in registers for its whole walk.
+// The warp reads 32 mask entries at once (a row of a block is contiguous;
+// a column is strided, cached through L1 for the 8 neighbouring columns of
+// the thread block), takes their ballot and visits only the entries that
+// are set. Per edge, lanes take two roles: lane k holds head k's scalars
+// (m, l, f1, the df1 / df2 sums) and lane c holds feature c of the
+// concatenated H*F row (the output accumulator, g or h). They trade per-
+// edge values through a small per-warp shared-memory scratch (the per-head
+// rescale and weight, the per-feature products summed per head). The
+// online softmax rescales per edge, so a 256 KB block never has to sit in
+// shared memory. Padded rows and filler blocks have no entries: they keep
+// m = -1e30 (the JAX sentinel; with -inf, exp(m_old - m_new) would be NaN),
+// l = 0 and write out = 0. No global atomics: every output row has one
+// owner. Products run as f32 FMA, expf in full precision.
+//
+// Limits: H * F <= 512 (16 features a lane), any H >= 1, B a multiple of
+// 32, n_rows a multiple of B. The wrapper (sparse/attention.py) checks them
+// and raises; the launchers also refuse them.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kWarps = 8;  // rows (or columns) per thread block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxHF = 512;
+constexpr unsigned kAll = 0xffffffffu;
+
+__device__ __forceinline__ float leaky(float x, float slope) {
+  return x >= 0.f ? x : slope * x;
+}
+
+// Q: features a lane holds (c = lane + 32 q < H*F); R: heads a lane holds
+// (k = lane + 32 r < H).
+template <int Q, int R>
+__global__ void __launch_bounds__(kThreads)
+gat_fwd_kernel(const int* __restrict__ row_ptr,
+               const int* __restrict__ block_cols,
+               const float* __restrict__ blocks, const float* __restrict__ f1,
+               const float* __restrict__ f2, const float* __restrict__ h,
+               float* __restrict__ out, float* __restrict__ m_out,
+               float* __restrict__ l_out, int n_rows, int B, int H, int F,
+               float slope) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int HF = H * F;
+  float* scale_s = smem + warp * 2 * H;  // per head: exp(m_old - m_new)
+  float* p_s = scale_s + H;              // per head: exp(e - m_new)
+  const int64_t i = (int64_t)blockIdx.x * kWarps + warp;
+  if (i >= n_rows) return;
+  const int br = (int)(i / B), il = (int)(i % B);
+
+  float m[R], l[R], f1r[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    m[r] = kNegInf;
+    l[r] = 0.f;
+    f1r[r] = k < H ? f1[i * H + k] : 0.f;
+  }
+  float acc[Q];
+  int hk[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = lane + 32 * q;
+    acc[q] = 0.f;
+    hk[q] = c < HF ? c / F : 0;
+  }
+
+  const int b_end = row_ptr[br + 1];
+  for (int b = row_ptr[br]; b < b_end; ++b) {
+    const float* arow = blocks + ((int64_t)b * B + il) * B;
+    const int64_t col0 = (int64_t)block_cols[b] * B;
+    for (int j0 = 0; j0 < B; j0 += 32) {
+      unsigned bits = __ballot_sync(kAll, arow[j0 + lane] > 0.f);
+      while (bits) {
+        const int u = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int64_t j = col0 + j0 + u;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int k = lane + 32 * r;
+          if (k < H) {
+            const float e = leaky(f1r[r] + f2[j * H + k], slope);
+            const float mn = fmaxf(m[r], e);
+            const float sc = expf(m[r] - mn);
+            const float p = expf(e - mn);
+            l[r] = l[r] * sc + p;
+            m[r] = mn;
+            scale_s[k] = sc;
+            p_s[k] = p;
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int c = lane + 32 * q;
+          if (c < HF) {
+            acc[q] = fmaf(p_s[hk[q]], h[j * HF + c], acc[q] * scale_s[hk[q]]);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    if (k < H) {
+      m_out[i * H + k] = m[r];
+      l_out[i * H + k] = l[r];
+      scale_s[k] = fmaxf(l[r], 1e-16f);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = lane + 32 * q;
+    if (c < HF) out[i * HF + c] = acc[q] / scale_s[hk[q]];
+  }
+}
+
+template <int Q, int R>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_row_kernel(const int* __restrict__ row_ptr,
+                   const int* __restrict__ block_cols,
+                   const float* __restrict__ blocks,
+                   const float* __restrict__ f1, const float* __restrict__ f2,
+                   const float* __restrict__ h, const float* __restrict__ g,
+                   const float* __restrict__ m_in,
+                   const float* __restrict__ l_in,
+                   const float* __restrict__ d_in, float* __restrict__ df1,
+                   int n_rows, int B, int H, int F, float slope) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int HF = H * F;
+  float* prod_s = smem + warp * HF;  // g_i[c] * h_j[c]
+  const int64_t i = (int64_t)blockIdx.x * kWarps + warp;
+  if (i >= n_rows) return;
+  const int br = (int)(i / B), il = (int)(i % B);
+
+  float f1r[R], mr[R], lr[R], dr[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    const bool live = k < H;
+    f1r[r] = live ? f1[i * H + k] : 0.f;
+    mr[r] = live ? m_in[i * H + k] : 0.f;
+    lr[r] = live ? fmaxf(l_in[i * H + k], 1e-16f) : 1.f;
+    dr[r] = live ? d_in[i * H + k] : 0.f;
+    acc[r] = 0.f;
+  }
+  float gq[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = lane + 32 * q;
+    gq[q] = c < HF ? g[i * HF + c] : 0.f;
+  }
+
+  const int b_end = row_ptr[br + 1];
+  for (int b = row_ptr[br]; b < b_end; ++b) {
+    const float* arow = blocks + ((int64_t)b * B + il) * B;
+    const int64_t col0 = (int64_t)block_cols[b] * B;
+    for (int j0 = 0; j0 < B; j0 += 32) {
+      unsigned bits = __ballot_sync(kAll, arow[j0 + lane] > 0.f);
+      while (bits) {
+        const int u = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int64_t j = col0 + j0 + u;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int c = lane + 32 * q;
+          if (c < HF) prod_s[c] = gq[q] * h[j * HF + c];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int k = lane + 32 * r;
+          if (k < H) {
+            float gh = 0.f;
+            for (int f = 0; f < F; ++f) gh += prod_s[k * F + f];
+            const float pre = f1r[r] + f2[j * H + k];
+            const float alpha = expf(leaky(pre, slope) - mr[r]) / lr[r];
+            const float dl = pre >= 0.f ? 1.f : slope;
+            acc[r] = fmaf(alpha * (gh - dr[r]), dl, acc[r]);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    if (k < H) df1[i * H + k] = acc[r];
+  }
+}
+
+template <int Q, int R>
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_col_kernel(const int* __restrict__ col_ptr,
+                   const int* __restrict__ colmajor,
+                   const int* __restrict__ block_rows,
+                   const float* __restrict__ blocks,
+                   const float* __restrict__ f1, const float* __restrict__ f2,
+                   const float* __restrict__ h, const float* __restrict__ g,
+                   const float* __restrict__ m_in,
+                   const float* __restrict__ l_in,
+                   const float* __restrict__ d_in, float* __restrict__ dh,
+                   float* __restrict__ df2, int n_cols, int B, int H, int F,
+                   float slope) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int HF = H * F;
+  float* alpha_s = smem + warp * (H + HF);  // per head: alpha_ij
+  float* prod_s = alpha_s + H;              // g_i[c] * h_j[c]
+  const int64_t j = (int64_t)blockIdx.x * kWarps + warp;
+  if (j >= n_cols) return;
+  const int cb = (int)(j / B), jl = (int)(j % B);
+
+  float f2r[R], acc2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    f2r[r] = k < H ? f2[j * H + k] : 0.f;
+    acc2[r] = 0.f;
+  }
+  float hq[Q], dhq[Q];
+  int hk[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = lane + 32 * q;
+    hq[q] = c < HF ? h[j * HF + c] : 0.f;
+    dhq[q] = 0.f;
+    hk[q] = c < HF ? c / F : 0;
+  }
+
+  const int t_end = col_ptr[cb + 1];
+  for (int t = col_ptr[cb]; t < t_end; ++t) {
+    const int b = colmajor[t];
+    const float* acol = blocks + (int64_t)b * B * B + jl;
+    const int64_t row0 = (int64_t)block_rows[b] * B;
+    for (int i0 = 0; i0 < B; i0 += 32) {
+      unsigned bits =
+          __ballot_sync(kAll, acol[(int64_t)(i0 + lane) * B] > 0.f);
+      while (bits) {
+        const int u = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int64_t i = row0 + i0 + u;
+        float alpha[R], dl[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int k = lane + 32 * r;
+          alpha[r] = dl[r] = 0.f;
+          if (k < H) {
+            const float pre = f1[i * H + k] + f2r[r];
+            alpha[r] = expf(leaky(pre, slope) - m_in[i * H + k]) /
+                       fmaxf(l_in[i * H + k], 1e-16f);
+            dl[r] = pre >= 0.f ? 1.f : slope;
+            alpha_s[k] = alpha[r];
+          }
+        }
+        float gq[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int c = lane + 32 * q;
+          gq[q] = 0.f;
+          if (c < HF) {
+            gq[q] = g[i * HF + c];
+            prod_s[c] = gq[q] * hq[q];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          if (lane + 32 * q < HF) dhq[q] = fmaf(alpha_s[hk[q]], gq[q], dhq[q]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int k = lane + 32 * r;
+          if (k < H) {
+            float gh = 0.f;
+            for (int f = 0; f < F; ++f) gh += prod_s[k * F + f];
+            acc2[r] = fmaf(alpha[r] * (gh - d_in[i * H + k]), dl[r], acc2[r]);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = lane + 32 * r;
+    if (k < H) df2[j * H + k] = acc2[r];
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = lane + 32 * q;
+    if (c < HF) dh[j * HF + c] = dhq[q];
+  }
+}
+
+bool bad_shape(int n, int B, int H, int F) {
+  return n <= 0 || B <= 0 || B % 32 != 0 || n % B != 0 || H < 1 || F < 1 ||
+         H * F > kMaxHF;
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// Calls launch(Int<Q>, Int<R>) with the smallest instantiation that holds
+// H heads of F features: Q = 2 covers H*F <= 64 (GAT's two layers), Q = 16
+// the limit; R = 1 covers H <= 32, R = 16 the limit.
+template <typename Launch>
+cudaError_t dispatch(int H, int F, Launch&& launch) {
+  if (H * F <= 64 && H <= 32) {
+    launch(Int<2>{}, Int<1>{});
+  } else if (H <= 32) {
+    launch(Int<16>{}, Int<1>{});
+  } else {
+    launch(Int<16>{}, Int<16>{});
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Forward with stats. blocks [nb, B, B] f32; f1, f2 [n_rows, H]; h
+// [n_rows, H*F]; out [n_rows, H*F], m, l [n_rows, H], every row written.
+// n_rows = n_row_blocks * B = n_col_blocks * B. Returns the cudaError_t of
+// the launch.
+extern "C" int h2gcn_gat_fwd(const int* row_ptr, const int* block_cols,
+                             const float* blocks, const float* f1,
+                             const float* f2, const float* h, float* out,
+                             float* m, float* l, int n_rows, int B, int H,
+                             int F, float slope, cudaStream_t stream) {
+  if (bad_shape(n_rows, B, H, F)) return cudaErrorInvalidValue;
+  const dim3 grid(n_rows / kWarps);
+  const size_t smem = (size_t)kWarps * 2 * H * sizeof(float);
+  return dispatch(H, F, [&](auto q, auto r) {
+    gat_fwd_kernel<decltype(q)::value, decltype(r)::value>
+        <<<grid, kThreads, smem, stream>>>(row_ptr, block_cols, blocks, f1,
+                                           f2, h, out, m, l, n_rows, B, H, F,
+                                           slope);
+  });
+}
+
+// Row backward: df1 [n_rows, H] from g [n_rows, H*F] and the forward's m, l
+// and D = per-head g . out [n_rows, H].
+extern "C" int h2gcn_gat_bwd_row(const int* row_ptr, const int* block_cols,
+                                 const float* blocks, const float* f1,
+                                 const float* f2, const float* h,
+                                 const float* g, const float* m,
+                                 const float* l, const float* d, float* df1,
+                                 int n_rows, int B, int H, int F, float slope,
+                                 cudaStream_t stream) {
+  if (bad_shape(n_rows, B, H, F)) return cudaErrorInvalidValue;
+  const dim3 grid(n_rows / kWarps);
+  const size_t smem = (size_t)kWarps * H * F * sizeof(float);
+  return dispatch(H, F, [&](auto q, auto r) {
+    gat_bwd_row_kernel<decltype(q)::value, decltype(r)::value>
+        <<<grid, kThreads, smem, stream>>>(row_ptr, block_cols, blocks, f1,
+                                           f2, h, g, m, l, d, df1, n_rows, B,
+                                           H, F, slope);
+  });
+}
+
+// Column backward over the blocks in column-major order: dh [n_rows, H*F]
+// and df2 [n_rows, H], every row written.
+extern "C" int h2gcn_gat_bwd_col(const int* col_ptr, const int* colmajor,
+                                 const int* block_rows, const float* blocks,
+                                 const float* f1, const float* f2,
+                                 const float* h, const float* g,
+                                 const float* m, const float* l,
+                                 const float* d, float* dh, float* df2,
+                                 int n_rows, int B, int H, int F, float slope,
+                                 cudaStream_t stream) {
+  if (bad_shape(n_rows, B, H, F)) return cudaErrorInvalidValue;
+  const dim3 grid(n_rows / kWarps);
+  const size_t smem = (size_t)kWarps * (H + H * F) * sizeof(float);
+  return dispatch(H, F, [&](auto q, auto r) {
+    gat_bwd_col_kernel<decltype(q)::value, decltype(r)::value>
+        <<<grid, kThreads, smem, stream>>>(col_ptr, colmajor, block_rows,
+                                           blocks, f1, f2, h, g, m, l, d, dh,
+                                           df2, n_rows, B, H, F, slope);
+  });
+}

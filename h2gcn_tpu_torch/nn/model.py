@@ -6,7 +6,8 @@ aggregation over the hop matrices, vectorize, concat of tagged outputs, and
 dropout. Concat layers see the tagged-output table in tag creation order;
 graph layers stack one aggregate per selected hop on a new axis. Dense
 kernels keep the JAX layout ``[in, out]`` (``y = x @ kernel + bias``), so
-:func:`load_jax_params` can carry the JAX package's weights over unchanged.
+:func:`load_jax_params` can carry the JAX package's weights over unchanged;
+:func:`load_jax_gat_params` does the same for GAT's per-head parameters.
 """
 
 from __future__ import annotations
@@ -157,4 +158,34 @@ def load_jax_params(model: NetworkModel, params) -> NetworkModel:
                     raise ValueError(f"layer {ind} {name}: {tuple(src.shape)} "
                                      f"!= {tuple(store[key].shape)}")
                 store[key].copy_(src)
+    return model
+
+
+def load_jax_gat_params(model, params):
+    """Load the JAX ``GATNetwork``'s pytree ``{"layers": [[{W, a1, a2, b1,
+    b2, bias, Wres?, bres?}, ...], ...]}`` (numpy arrays) into an
+    initialized port ``GATNetwork`` (``models/GAT.py``), so both packages
+    compute the same function."""
+    layers = params["layers"]
+    if len(layers) != len(model.layers):
+        raise ValueError(f"{len(layers)} layers for a {len(model.layers)}-"
+                         "layer model")
+    with torch.no_grad():
+        for li, (heads, t_heads) in enumerate(zip(layers, model.layers)):
+            if len(heads) != len(t_heads):
+                raise ValueError(f"layer {li}: {len(heads)} heads for "
+                                 f"{len(t_heads)}")
+            for hi, (p, tp) in enumerate(zip(heads, t_heads)):
+                if set(p) != set(tp.keys()):
+                    raise KeyError(f"layer {li} head {hi}: {sorted(p)} != "
+                                   f"{sorted(tp.keys())}")
+                for key, value in p.items():
+                    src = torch.from_numpy(np.array(value, dtype=np.float32))
+                    if src.numel() == 1 == tp[key].numel():
+                        src = src.reshape(tp[key].shape)  # b1, b2: () or (1,)
+                    if tuple(src.shape) != tuple(tp[key].shape):
+                        raise ValueError(
+                            f"layer {li} head {hi} {key}: "
+                            f"{tuple(src.shape)} != {tuple(tp[key].shape)}")
+                    tp[key].copy_(src)
     return model

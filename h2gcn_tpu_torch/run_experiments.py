@@ -103,6 +103,10 @@ def main(argv=None):
     if timing:
         hops = args.objects["tensors"].get("adj_hops")
         nnz_per_epoch = sum(getattr(h, "nnz", 0) for h in hops or [])
+        if not hops:
+            # models without hop matrices (GAT) aggregate over the support
+            nnz_per_epoch = getattr(args.objects["tensors"].get("adj"),
+                                    "nnz", 0)
         args.objects["epoch_times"] = []
     profile_dir = getattr(args, "_profile_dir", None)
     profiler = None

@@ -25,12 +25,16 @@ BUILD_DIR = _PKG / "_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argument types; every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
     "h2gcn_gscatter_spmm": [_P, _P, _P, _P, _P, _I, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P],
     "h2gcn_bsr_spmm": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "h2gcn_gat_bwd_col": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
 }
 
 

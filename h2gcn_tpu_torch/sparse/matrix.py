@@ -7,7 +7,9 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
 ``dense``     the matrix as a dense tensor; ``torch.matmul``.
 ``segment``   the COO arrays alone; gather + ``index_add_``.
 ``gscatter``  chunk tables for ``csrc/gscatter.cu`` (:mod:`.gscatter`).
-``bsr``       dense 128 x 128 blocks for ``csrc/bsr_spmm.cu`` (:mod:`.bsr_spmm`).
+``bsr``       dense B x B blocks: 128-blocks for ``csrc/bsr_spmm.cu``
+              (:mod:`.bsr_spmm`), 256-blocks as the GAT attention mask of
+              ``csrc/gat_attention.cu`` (:mod:`.attention`).
 
 :func:`spmm` is differentiable in ``x``: its backward is ``spmm`` of the
 transpose view, which carries the transpose payload (or, for a symmetric
@@ -45,13 +47,18 @@ def _auto_backend(device: torch.device) -> str:
 @dataclasses.dataclass
 class BSR:
     """Dense B x B blocks sorted by (block_row, block_col); every block row
-    holds at least one block (zero fillers), so every output tile is
-    written."""
+    and every block column holds at least one block (zero fillers), so
+    every output tile is written in both directions."""
 
     blocks: torch.Tensor        # [nb, B, B] f32 or bf16
     block_rows: torch.Tensor    # [nb] int32, ascending
     block_cols: torch.Tensor    # [nb] int32
     row_ptr: torch.Tensor       # [n_row_blocks + 1] int32 first block of each row
+    # the blocks in (block_col, block_row) order, the JAX package's
+    # host-built schedule of transpose-direction passes, and the first
+    # entry of each block column in it
+    colmajor_order: torch.Tensor  # [nb] int32
+    col_ptr: torch.Tensor       # [n_col_blocks + 1] int32
     block_size: int = _DEFAULT_BLOCK
     n_row_blocks: int = 1
     n_col_blocks: int = 1
@@ -253,6 +260,9 @@ def _build_bsr(csr, block_size: int, payload_dtype=torch.float32,
                                           block_cols[order])
 
     row_ptr = np.searchsorted(block_rows, np.arange(n_rb + 1)).astype(np.int32)
+    colmajor = np.lexsort((block_rows, block_cols)).astype(np.int32)
+    col_ptr = np.searchsorted(block_cols[colmajor],
+                              np.arange(n_cb + 1)).astype(np.int32)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -262,6 +272,8 @@ def _build_bsr(csr, block_size: int, payload_dtype=torch.float32,
         block_rows=dev(block_rows),
         block_cols=dev(block_cols),
         row_ptr=dev(row_ptr),
+        colmajor_order=dev(colmajor),
+        col_ptr=dev(col_ptr),
         block_size=B,
         n_row_blocks=n_rb,
         n_col_blocks=n_cb,

@@ -5,7 +5,9 @@ Imports no JAX, so it also runs on a GPU machine without it:
 test here needs a CUDA GPU and nvcc and skips without them. Tolerance: the
 kernels sum in another order than index_add_ / einsum (atomics, tiles), so
 the error is held at 1e-5 of the output's scale; bf16 rounding is the same
-on both sides."""
+on both sides. The GAT attention kernels also rescale their online softmax
+edge by edge where the plain versions take each row's max at once, so they
+are held at 1e-4 of the output's scale, the gate of chip_smoke.py."""
 
 import dataclasses
 
@@ -14,11 +16,14 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from h2gcn_tpu_torch.models import GAT as tgat
 from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
+from h2gcn_tpu_torch.sparse import attention as tatt
 from h2gcn_tpu_torch.sparse import bsr_spmm as tbsr
 from h2gcn_tpu_torch.sparse import gscatter as tgs
 
 TOL = 1e-5
+GAT_TOL = 1e-4
 
 
 @pytest.fixture
@@ -29,11 +34,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, ref):
+def _close(got, ref, tol=TOL):
     assert got.shape == ref.shape and got.dtype == torch.float32
-    scale = max(1.0, float(ref.abs().max()))
-    err = float((got - ref).abs().max())
-    assert err <= TOL * scale, (err, scale)
+    assert torch.isfinite(got).all()
+    # the GAT row max keeps its -1e30 sentinel exactly where a row has no
+    # entry; the scale is taken over the other entries
+    live = ref > tatt.NEG_INF / 2
+    assert torch.equal(got[~live], ref[~live])
+    scale = max(1.0, float(ref[live].abs().max()))
+    err = float((got[live] - ref[live]).abs().max())
+    assert err <= tol * scale, (err, scale)
 
 
 def _rand(n, m, nnz, seed, rows=None):
@@ -124,3 +134,116 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     sm = SparseMatrix.from_scipy(a, backend="bsr", block_size=64, device=cuda)
     with pytest.raises(ValueError, match="128-blocks"):
         tbsr.bsr_spmm(sm.bsr, torch.randn(500, 8, device=cuda), n_out=500)
+
+
+def _mask(n, B, seed, self_loops=True, empty=False):
+    a = _rand(n, n, 4 * n, seed)
+    a = ((a + a.T) > 0).astype(np.float32)
+    if self_loops:
+        a = a + sp.eye(n, dtype=np.float32)
+    a = (a > 0).astype(np.float32).tolil()
+    if empty:  # block row and column 1 hold no entry: filler blocks
+        a[B:2 * B, :] = 0
+        a[:, B:2 * B] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    return a
+
+
+# (B, n, H, F, self loops, an empty block row and column); the last three
+# take the kernels' wider instantiations (H > 32, H*F = 512)
+GAT_CASES = [(256, 2708, 8, 8, True, False), (256, 2708, 1, 7, True, False),
+             (128, 600, 3, 7, False, True), (128, 500, 40, 3, True, False),
+             (256, 300, 1, 512, True, False), (128, 300, 2, 256, True, True)]
+
+
+@pytest.mark.parametrize("case", GAT_CASES, ids=str)
+def test_gat_kernels_match_plain(cuda, case):
+    B, n, H, F, loops, empty = case
+    sm = SparseMatrix.from_scipy(_mask(n, B, 7, loops, empty), backend="bsr",
+                                 block_size=B, device=cuda)
+    bsr = sm.bsr
+    n_pad = bsr.n_row_blocks * B
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    kw = dict(num_heads=H, feat=F)
+    launches = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
+                tatt.gat_bwd_col.launches)
+    out, m, l = tatt.gat_fwd_stats(bsr, f1, f2, h, **kw)
+    ref = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
+    d = tatt.head_dots(g, ref[0], H, F)
+    df1 = tatt.gat_bwd_row(bsr, f1, f2, h, g, *ref[1:], d, **kw)
+    dh, df2 = tatt.gat_bwd_col(bsr, f1, f2, h, g, *ref[1:], d, **kw)
+    torch.cuda.synchronize()
+    assert (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
+            tatt.gat_bwd_col.launches) == tuple(c + 1 for c in launches)
+    for got, want in zip((out, m, l), ref):
+        _close(got, want, GAT_TOL)
+    _close(df1, tatt.gat_bwd_row_plain(bsr, f1, f2, h, g, *ref[1:], d, **kw),
+           GAT_TOL)
+    for got, want in zip((dh, df2), tatt.gat_bwd_col_plain(
+            bsr, f1, f2, h, g, *ref[1:], d, **kw)):
+        _close(got, want, GAT_TOL)
+    if empty:
+        assert (l[B:2 * B] == 0).all() and (out[B:2 * B] == 0).all()
+        assert (m[B:2 * B] == tatt.NEG_INF).all()
+
+
+def test_gat_attention_backward_launches_its_kernels(cuda):
+    n, H, F = 1000, 8, 8
+    sm = SparseMatrix.from_scipy(_mask(n, 256, 8), backend="bsr",
+                                 block_size=256, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xs = [torch.randn(n, w, generator=gen, device=cuda, requires_grad=True)
+          for w in (H, H, H * F)]
+    gw = torch.randn(n, H * F, generator=gen, device=cuda)
+    before = tatt.gat_fwd_stats.launches
+    out = tatt.gat_attention(sm.bsr, *xs, num_heads=H, feat=F, n_out=n)
+    assert tatt.gat_fwd_stats.launches == before + 1
+    rows, cols = tatt.gat_bwd_row.launches, tatt.gat_bwd_col.launches
+    (out * gw).sum().backward()
+    torch.cuda.synchronize()
+    assert tatt.gat_bwd_row.launches == rows + 1
+    assert tatt.gat_bwd_col.launches == cols + 1
+    # the same on the CPU, through the plain versions
+    cpu = SparseMatrix.from_scipy(sm.to_scipy(), backend="bsr",
+                                  block_size=256)
+    xc = [x.detach().cpu().requires_grad_(True) for x in xs]
+    outc = tatt.gat_attention(cpu.bsr, *xc, num_heads=H, feat=F, n_out=n)
+    (outc * gw.cpu()).sum().backward()
+    _close(out.detach().cpu(), outc.detach(), GAT_TOL)
+    for x, c in zip(xs, xc):
+        _close(x.grad.cpu(), c.grad, GAT_TOL)
+
+
+def test_gat_kernels_refuse_what_they_do_not_take(cuda):
+    sm = SparseMatrix.from_scipy(_mask(300, 128, 9), backend="bsr",
+                                 device=cuda)
+    n_pad = sm.bsr.n_row_blocks * 128
+    f = torch.zeros(n_pad, 1, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        tatt.gat_fwd_stats(sm.bsr, f, f, torch.zeros(n_pad, 513, device=cuda),
+                           num_heads=1, feat=513)
+    bf16 = SparseMatrix.from_scipy(_mask(300, 128, 9), backend="bsr",
+                                   precision="default", device=cuda)
+    with pytest.raises(ValueError, match="f32 mask"):
+        tatt.gat_fwd_stats(bf16.bsr, f, f, torch.zeros(n_pad, 8, device=cuda),
+                           num_heads=1, feat=8)
+
+
+def test_gat_model_fused_matches_segment_on_the_card(cuda):
+    n, d, c = 2708, 64, 7
+    support = _mask(n, 256, 10)
+    x = torch.rand(n, d, device=cuda)
+    model = tgat.GATNetwork(c, fused_attention=True, attn_drop=0.0)
+    model.init(d, 1, torch.Generator().manual_seed(0), cuda)
+    adj = tgat.build_gat_adjacency(support, True, device=cuda)
+    before = tatt.gat_fwd_stats.launches
+    fused = model(adj, x, [], training=False)
+    assert tatt.gat_fwd_stats.launches == before + 2
+    model.fused_attention = False
+    seg = model(adj, x, [], training=False)
+    _close(fused.detach(), seg.detach(), GAT_TOL)
