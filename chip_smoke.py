@@ -35,7 +35,23 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    segment path, eval launches the forward kernel), and checks launches,
    finite losses, a checkpoint, and the trained logits through the kernels
    against the same weights through the segment path;
-7. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+7. (``gat_scale_kernels``) holds the payloads past the BSR budget against
+   their plain versions and times them, on the 10K graph (self-looped,
+   128,602 edges) and the Cora-shaped graph at both GAT widths: the three
+   COO-chunk attention kernels (gat_coo_fwd, gat_coo_bwd_row,
+   gat_coo_bwd_col) in f32 and, against the f32 plain version at a looser
+   bound, in bf16 ("default"), and the weighted gather-scatter combine
+   (gscatter_weighted) in the four combines of a training step; then times
+   one attention layer forward and forward + backward through each of the
+   BSR, COO-chunk and gather payloads on the same inputs (the crossover
+   the BSR budget waits for);
+8. (``gat_scale_cli``) trains GAT for 5 epochs through the CLI on the 10K
+   graph (past the BSR budget) with ``--fused_attention``: ``auto`` with
+   the published ``--attn_drop 0.6`` (routes to the gather payload and
+   trains fused), ``auto`` with ``--attn_drop 0``, and ``--attn_impl coo
+   --attn_drop 0``, and checks each run's route and launches, finite
+   losses, a checkpoint, and the trained logits against the segment path;
+9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 """
@@ -57,6 +73,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # dense, 700 W
 TOL = 1e-4  # max |kernel - plain| <= TOL * max(1, max |plain|)
+# the COO-chunk kernels in "default" precision (bf16 contraction operands)
+# against the f32 plain version: the JAX package's bound for its bf16 mode
+BF16_TOL = 3e-2
 EPOCHS = 5
 
 
@@ -363,6 +382,34 @@ def _gat_bounds(kernel, E, n, H, F):
     return _bound(nbytes, ops, "float32")
 
 
+def _max_err(what, got, ref, rel):
+    """Max |got - ref| over the entries where the reference has no sentinel
+    row max (those must match exactly), against ``rel`` * max(1, max
+    |ref|) -> (err, tol); raises past it."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse.attention import NEG_INF
+
+    err, tol = 0.0, 0.0
+    for a, b in zip(got, ref):
+        live = b > NEG_INF / 2
+        if (a.shape != b.shape or not torch.isfinite(a).all()
+                or not torch.equal(a[~live], b[~live])):
+            raise AssertionError(f"{what}: bad output {tuple(a.shape)}")
+        e = float((a[live] - b[live]).abs().max()) if live.any() else 0.0
+        t = rel * max(1.0, float(b[live].abs().max()) if live.any() else 0.0)
+        if e > t:
+            emit({"check": what, "max_abs_err": e, "tol": t})
+            raise AssertionError(f"{what} disagrees with its plain version: "
+                                 f"{e} > {t}")
+        err, tol = max(err, e), max(tol, t)
+    return err, tol
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check_gat_kernels(device):
     """Phase 5: the GAT attention kernels against their plain versions,
     timed. Returns {kernel: [case dicts]}."""
@@ -414,28 +461,9 @@ def check_gat_kernels(device):
                     lambda: att.gat_bwd_col_plain(*bwd, **kw)),
             }
             for kernel, (run, plain) in calls.items():
-                got, ref = run(), plain()
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
+                err, tol = _max_err(f"{kernel} {gname} H={H} F={F}",
+                                    _tuple(run()), _tuple(plain()), TOL)
                 torch.cuda.synchronize()
-                err, tol = 0.0, 0.0
-                for a, b in zip(got, ref):
-                    # rows without an entry keep the sentinel max exactly
-                    live = b > att.NEG_INF / 2
-                    if (a.shape != b.shape or not torch.isfinite(a).all()
-                            or not torch.equal(a[~live], b[~live])):
-                        raise AssertionError(
-                            f"{kernel} {gname} H={H} F={F}: bad output "
-                            f"{tuple(a.shape)}")
-                    e = float((a[live] - b[live]).abs().max())
-                    t = TOL * max(1.0, float(b[live].abs().max()))
-                    if e > t:
-                        emit({"kernel": kernel, "graph": gname, "H": H,
-                              "F": F, "max_abs_err": e, "tol": t})
-                        raise AssertionError(
-                            f"{kernel} disagrees with its plain version on "
-                            f"{gname} H={H} F={F}: {e} > {t}")
-                    err, tol = max(err, e), max(tol, t)
                 bound_ms, bound_by = _gat_bounds(kernel, E, n, H, F)
                 case = dict(kernel=kernel, graph=gname, n=n, support_nnz=E,
                             H=H, F=F, max_abs_err=err, tol=tol,
@@ -449,41 +477,250 @@ def check_gat_kernels(device):
     return results
 
 
-def run_gat_cli(data_dir, name, device, attn_drop):
-    """Phase 6: GAT for EPOCHS epochs through the CLI with
-    ``--fused_attention``. Returns the launch counts of the run."""
+def _combine_bounds(E, n_in, n_out, H, f, aug):
+    """The least work of one weighted combine: each edge's row and column
+    (8 B) and its weights (4 B a head, twice in the augmented form) read
+    once, x read once, the output written once; 2 f32 ops an edge and
+    column."""
+    nbytes = E * (8 + 4 * H * (2 if aug else 1)) + 4 * (n_in + n_out) * f
+    return _bound(nbytes, 2 * E * f, "float32")
+
+
+def _bmm_library_ms(ga, wf, x, H, F):
+    """The one PyTorch call that computes the plain combine over the
+    transpose tables: a batched sparse [H, m, n] product with x as
+    [H, n, F] (torch.bmm of a sparse COO batch)."""
+    import torch
+
+    E = ga.num_edges
+    k = torch.arange(H, device=x.device).repeat_interleave(E)
+    idx = torch.stack([k, ga.cols.repeat(H), ga.rows.repeat(H)])
+    a = torch.sparse_coo_tensor(idx, wf.T.reshape(-1),
+                                (H, ga.num_src, ga.n)).coalesce()
+    xb = x.reshape(-1, H, F).permute(1, 0, 2).contiguous()
+    return time_ms(lambda: torch.bmm(a, xb), 20)
+
+
+def check_gat_scale_kernels(device):
+    """Phase 7: the COO-chunk attention kernels and the weighted combine
+    against their plain versions, timed, at the shapes GAT takes past the
+    BSR budget; and one attention layer through each payload. Returns
+    ({kernel: [case dicts]}, [crossover dicts])."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import SparseMatrix
+    from h2gcn_tpu_torch.sparse import attention as att
+    from h2gcn_tpu_torch.sparse import attention_coo as coo
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+
+    graphs = {"syn10k": self_looped(build_graph()),
+              "cora_shaped": self_looped(cora_graph())}
+    gen = torch.Generator(device=device).manual_seed(2)
+    results = {"coo_fwd_stats": [], "coo_bwd_row": [], "coo_bwd_col": [],
+               "gscatter_weighted": []}
+    b5_name = {"coo_fwd_stats": "gat_fwd_stats",
+               "coo_bwd_row": "gat_bwd_row", "coo_bwd_col": "gat_bwd_col"}
+    crossover = []
+    for gname, support in graphs.items():
+        t0 = time.perf_counter()
+        ac = coo.build_attn_coo(support, device=device)
+        ga = gat.build_gatherattn(support, device=device)
+        bsr = SparseMatrix.from_scipy(support, backend="bsr", block_size=256,
+                                      device=device).bsr
+        n, E = support.shape[0], support.nnz
+        n_pad = ac.n_tiles * ac.tile
+        emit({"graph": gname, "n": n, "support_nnz": E,
+              "coo_chunks": ac.num_chunks,
+              "coo_max_tile_slots": max(sg.max_tile_slots for sg in ac.fwd),
+              "gather_slots": ga.total_slots_fwd,
+              "max_stripe_nnz": int(np.add.reduceat(
+                  np.diff(support.indptr), np.arange(0, n, 512)).max()),
+              "max_row_nnz": int(np.diff(support.indptr).max()),
+              "s": time.perf_counter() - t0})
+        for H, F in GAT_WIDTHS:
+            t0 = time.perf_counter()
+            f1, f2 = (torch.randn(n, H, generator=gen, device=device)
+                      for _ in range(2))
+            h, g = (torch.randn(n, H * F, generator=gen, device=device)
+                    for _ in range(2))
+            f1p, f2p, hp, gp = (att.pad_rows(t, n_pad) for t in (f1, f2, h, g))
+            kw = dict(num_heads=H, feat=F)
+            # the stats and D of the plain forward feed both backward passes
+            out0, m0, l0 = coo.coo_fwd_stats_plain(ac, f1p, f2p, hp, **kw)
+            d = att.head_dots(gp, out0, H, F)
+            bwd = (ac, f1p, f2p, hp, gp, m0, l0, d)
+            calls = {
+                "coo_fwd_stats": (
+                    lambda **k: coo.coo_fwd_stats(ac, f1p, f2p, hp, **kw, **k),
+                    lambda: coo.coo_fwd_stats_plain(ac, f1p, f2p, hp, **kw)),
+                "coo_bwd_row": (
+                    lambda **k: coo.coo_bwd_row(*bwd, **kw, **k),
+                    lambda: coo.coo_bwd_row_plain(*bwd, **kw)),
+                "coo_bwd_col": (
+                    lambda **k: coo.coo_bwd_col(*bwd, **kw, **k),
+                    lambda: coo.coo_bwd_col_plain(*bwd, **kw)),
+            }
+            for kernel, (run, plain) in calls.items():
+                what = f"{kernel} {gname} H={H} F={F}"
+                ref = _tuple(plain())
+                err, tol = _max_err(what, _tuple(run()), ref, TOL)
+                # bf16 contraction operands against the f32 plain version
+                err16, tol16 = _max_err(f"{what} default",
+                                        _tuple(run(precision="default")), ref,
+                                        BF16_TOL)
+                torch.cuda.synchronize()
+                bound_ms, bound_by = _gat_bounds(b5_name[kernel], E, n, H, F)
+                case = dict(kernel=kernel, graph=gname, n=n, support_nnz=E,
+                            H=H, F=F, max_abs_err=err, tol=tol,
+                            default_max_abs_err=err16, default_tol=tol16,
+                            kernel_ms=time_ms(run, 20),
+                            default_ms=time_ms(
+                                lambda: run(precision="default"), 20),
+                            plain_ms=time_ms(plain, 5),
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None, s=time.perf_counter() - t0)
+                emit(case)
+                results[kernel].append(case)
+
+            # the four combines of a training step, on real edge weights
+            t0 = time.perf_counter()
+            s_, p, live = gat._edge_terms(ga, f1, f2, 0.2)
+            mask = torch.where(torch.rand(E, H, generator=gen, device=device)
+                               < 0.4, 2.5, 0.0)
+            q = torch.where(s_ >= 0, 1.0, 0.2) * torch.where(live, p, 0.0)
+            pm, qm = (p * mask).contiguous(), (q * mask).contiguous()
+            ones = torch.ones(n, H, device=device)
+            gl = torch.randn(n, H, generator=gen, device=device)
+            combines = {
+                "forward": (ga.fwd, ga.slot2edge_fwd, pm,
+                            gat._augx(h, ones, H, F), p),
+                "dh": (ga.bwd, ga.slot2edge_bwd, pm, g, None),
+                "df1": (ga.fwd, ga.slot2edge_fwd, qm,
+                        gat._augx(h, ones, H, F), q),
+                "df2": (ga.bwd, ga.slot2edge_bwd, qm,
+                        gat._augx(g, gl, H, F), q),
+            }
+            for cname, (gs, s2e, wf, x, wl) in combines.items():
+                def run(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl):
+                    return gat.gscatter_weighted(gs, s2e, wf, x, num_heads=H,
+                                                 wl=wl)
+
+                def plain(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl):
+                    return gat.gscatter_weighted_plain(gs, s2e, wf, x,
+                                                       num_heads=H, wl=wl)
+
+                err, tol = _max_err(f"gscatter_weighted {cname} {gname} "
+                                    f"H={H} F={F}", (run(),), (plain(),), TOL)
+                torch.cuda.synchronize()
+                bound_ms, bound_by = _combine_bounds(
+                    E, x.shape[0], gs.n_rows, H, x.shape[1], wl is not None)
+                case = dict(kernel="gscatter_weighted", combine=cname,
+                            graph=gname, n=n, support_nnz=E, H=H, F=F,
+                            width=x.shape[1], max_abs_err=err, tol=tol,
+                            kernel_ms=time_ms(run, 20),
+                            plain_ms=time_ms(plain, 5),
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=(_bmm_library_ms(ga, wf, x, H, F)
+                                        if cname == "dh" else None),
+                            s=time.perf_counter() - t0)
+                emit(case)
+                results["gscatter_weighted"].append(case)
+
+            # one attention layer, forward and forward + backward, through
+            # each payload on the same inputs
+            layers = {
+                "bsr": lambda *x: att.gat_attention(bsr, *x, n_out=n, **kw),
+                "coo": lambda *x: coo.gat_attention_coo(ac, *x, n_out=n,
+                                                        **kw),
+                "gather": lambda *x: gat.gather_attention(ga, *x, **kw),
+            }
+            row = dict(graph=gname, n=n, support_nnz=E, H=H, F=F)
+            for payload, fn in layers.items():
+                xs = [t.clone().requires_grad_(True) for t in (f1, f2, h)]
+
+                def forward(fn=fn):
+                    with torch.no_grad():
+                        return fn(f1, f2, h)
+
+                def step(fn=fn, xs=xs):
+                    fn(*xs).backward(g)
+
+                row[f"{payload}_fwd_ms"] = time_ms(forward, 10)
+                row[f"{payload}_fwd_bwd_ms"] = time_ms(step, 10)
+            emit(dict(row, crossover=True))
+            crossover.append(row)
+    return results, crossover
+
+
+# the attention kernels' launch counters by route
+_GAT_ROUTES = {
+    "bsr": ("gat_fwd_stats", "gat_bwd_row", "gat_bwd_col"),
+    "coo": ("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col"),
+    "gather": ("gscatter_weighted",),
+}
+
+
+def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
+                attn_impl=None):
+    """Phases 6 and 8: GAT for EPOCHS epochs through the CLI with
+    ``--fused_attention`` (and ``--attn_impl``), expecting the ``route``
+    payload. Returns the launch counts of the route's kernels in the run."""
     import glob
 
     import torch
 
     from h2gcn_tpu_torch import run_experiments
     from h2gcn_tpu_torch.sparse import attention as att
+    from h2gcn_tpu_torch.sparse import attention_coo as coo
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
 
     t0 = time.perf_counter()
-    ckpt_dir = os.path.join(data_dir, f"ckpt_gat_{attn_drop}")
+    tag = f"{name}_{attn_impl or 'auto'}_{attn_drop}"
+    ckpt_dir = os.path.join(data_dir, f"ckpt_gat_{tag}")
     argv = ["GAT", "planetoid", "--dataset", f"ind.{name}",
             "--dataset_path", data_dir, "--fused_attention",
             "--attn_drop", str(attn_drop), "--epochs", str(EPOCHS),
             "--timing", "--random_seed", "123", "--checkpoint_dir", ckpt_dir]
-    counters = (att.gat_fwd_stats, att.gat_bwd_row, att.gat_bwd_col)
-    for fn in counters:
+    if attn_impl:
+        argv += ["--attn_impl", attn_impl]
+    counters = {fn.__name__: fn for fn in (
+        att.gat_fwd_stats, att.gat_bwd_row, att.gat_bwd_col,
+        coo.coo_fwd_stats, coo.coo_bwd_row, coo.coo_bwd_col,
+        gat.gscatter_weighted)}
+    for fn in counters.values():
         fn.launches = 0
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    # attention dropout needs per-edge alpha: training then takes the
-    # segment path, and only the evaluations run the forward kernel
-    trains_fused = attn_drop == 0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    adj = args.objects["tensors"]["adj"]
+    payload = {"bsr": adj.bsr is not None,
+               "coo": isinstance(adj.attn, coo.AttnCoo),
+               "gather": isinstance(adj.attn, gat.GatherAttn)}
+    if not payload[route]:
+        raise AssertionError(f"GAT {tag}: the support took no {route} "
+                             f"payload (backend {adj.backend})")
     for kernel, count in launches.items():
-        if (count > 0) != (trains_fused or kernel == "gat_fwd_stats"):
-            raise AssertionError(f"GAT --attn_drop {attn_drop}: {kernel} "
-                                 f"launched {count} times")
+        if route == "bsr":
+            # attention dropout needs per-edge alpha: training then takes
+            # the segment path, and only the evaluations run the forward
+            want = kernel in _GAT_ROUTES["bsr"] and (
+                attn_drop == 0 or kernel == "gat_fwd_stats")
+        else:
+            want = kernel in _GAT_ROUTES[route]
+        if (count > 0) != want:
+            raise AssertionError(f"GAT {tag}: {kernel} launched {count} "
+                                 "times")
+    if route == "gather" and launches["gscatter_weighted"] < 8 * EPOCHS:
+        # training runs fused: a forward and three backward combines a
+        # layer and step
+        raise AssertionError(f"GAT {tag}: the combine launched only "
+                             f"{launches['gscatter_weighted']} times")
     stats = args.objects["epoch_stats"]
     for key in ("train_loss", "val_loss", "test_loss"):
         if not np.isfinite(float(stats[key])):
-            raise AssertionError(f"GAT: {key} = {float(stats[key])}")
+            raise AssertionError(f"GAT {tag}: {key} = {float(stats[key])}")
     if not glob.glob(os.path.join(ckpt_dir, "*", "ckpt.pt")):
-        raise AssertionError(f"GAT: no checkpoint under {ckpt_dir}")
+        raise AssertionError(f"GAT {tag}: no checkpoint under {ckpt_dir}")
 
     # the trained weights through the kernels and through the segment path
     tensors = args.objects["tensors"]
@@ -495,23 +732,25 @@ def run_gat_cli(data_dir, name, device, attn_drop):
         model.fused_attention = True
     n, n_classes = tensors["y_all"].shape
     if tuple(logits.shape) != (n, n_classes) or not torch.isfinite(logits).all():
-        raise AssertionError(f"GAT: bad logits {tuple(logits.shape)}")
+        raise AssertionError(f"GAT {tag}: bad logits {tuple(logits.shape)}")
     logit_err = float((logits - ref).abs().max())
     logit_tol = TOL * max(1.0, float(ref.abs().max()))
     if logit_err > logit_tol:
-        raise AssertionError(f"GAT: logits through the kernels differ from "
-                             f"the segment path by {logit_err} > {logit_tol}")
+        raise AssertionError(f"GAT {tag}: logits through the kernels differ "
+                             f"from the segment path by {logit_err} > "
+                             f"{logit_tol}")
     times = args.objects["epoch_times"]
     epoch_ms, epoch_ms_median = run_experiments.steady_epoch_ms(times)
-    emit({"cli": "GAT", "attn_drop": attn_drop, "epochs": len(times),
-          "support_nnz": tensors["adj"].nnz,
+    emit({"cli": "GAT", "graph": name, "route": route,
+          "attn_impl": attn_impl or "auto", "attn_drop": attn_drop,
+          "epochs": len(times), "support_nnz": tensors["adj"].nnz,
           "epoch_ms": epoch_ms, "epoch_ms_median": epoch_ms_median,
           "first_epoch_ms": 1e3 * times[0],
           "final_train_loss": float(stats["train_loss"]),
           "final_val_acc": float(stats["val_acc"]),
           "launches": launches, "logit_err": logit_err,
           "logit_tol": logit_tol, "s": time.perf_counter() - t0})
-    return launches
+    return {k: launches[k] for k in _GAT_ROUTES[route]}
 
 
 def main() -> int:
@@ -564,6 +803,21 @@ def main() -> int:
         launches.update(run_gat_cli(data_dir, "syncora", device, 0))
         run_gat_cli(data_dir, "syncora", device, 0.6)
         emit({"phase": "gat_cli", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        scale_cases, _ = check_gat_scale_kernels(device)
+        cases.update(scale_cases)
+        emit({"phase": "gat_scale_kernels", "s": time.perf_counter() - t0})
+
+        # the 10K graph is past the BSR budget: auto takes the gather
+        # payload, which trains fused with the published attention dropout
+        t0 = time.perf_counter()
+        launches.update(run_gat_cli(data_dir, "syn10k", device, 0.6,
+                                    route="gather"))
+        run_gat_cli(data_dir, "syn10k", device, 0, route="gather")
+        launches.update(run_gat_cli(data_dir, "syn10k", device, 0,
+                                    route="coo", attn_impl="coo"))
+        emit({"phase": "gat_scale_cli", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -576,10 +830,25 @@ def main() -> int:
                "gat_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
                                "h2gcn_tpu/sparse/pallas_attention.py:300"),
                "gat_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
-                               "h2gcn_tpu/sparse/pallas_attention.py:326")}
+                               "h2gcn_tpu/sparse/pallas_attention.py:326"),
+               "coo_fwd_stats": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
+                                 "h2gcn_tpu/sparse/pallas_attention_coo.py:188"),
+               "coo_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
+                               "h2gcn_tpu/sparse/pallas_attention_coo.py:221"),
+               "coo_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
+                               "h2gcn_tpu/sparse/pallas_attention_coo.py:250"),
+               "gscatter_weighted": (
+                   "h2gcn_tpu_torch/csrc/gscatter_weighted.cu",
+                   "h2gcn_tpu/sparse/pallas_attention_gather.py:141")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        if name in gat_cases:
+        if name in scale_cases:
+            # the headline shape: the 10K graph at layer 1's width (the
+            # combine: the forward's augmented one)
+            head = next(c for c in cases[name]
+                        if c["graph"] == "syn10k" and c["H"] == 8
+                        and c.get("combine", "forward") == "forward")
+        elif name in gat_cases:
             # the headline shape: the Cora-shaped graph at layer 1's width
             head = next(c for c in cases[name]
                         if c["graph"] == "cora_shaped" and c["H"] == 8)

@@ -30,7 +30,8 @@
 // The warp reads 32 mask entries at once (a row of a block is contiguous;
 // a column is strided, cached through L1 for the 8 neighbouring columns of
 // the thread block), takes their ballot and visits only the entries that
-// are set. Per edge, lanes take two roles: lane k holds head k's scalars
+// are set. What a warp does with each edge (gat_edge.cuh, shared with the
+// COO-chunk kernels of gat_attention_coo.cu): lane k holds head k's scalars
 // (m, l, f1, the df1 / df2 sums) and lane c holds feature c of the
 // concatenated H*F row (the output accumulator, g or h). They trade per-
 // edge values through a small per-warp shared-memory scratch (the per-head
@@ -48,19 +49,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "gat_edge.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;  // rows (or columns) per thread block
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHF = 512;
-constexpr unsigned kAll = 0xffffffffu;
-
-__device__ __forceinline__ float leaky(float x, float slope) {
-  return x >= 0.f ? x : slope * x;
-}
+using gat::kAll;
+using gat::kThreads;
+using gat::kWarps;
 
 // Q: features a lane holds (c = lane + 32 q < H*F); R: heads a lane holds
 // (k = lane + 32 r < H).
@@ -83,23 +78,8 @@ gat_fwd_kernel(const int* __restrict__ row_ptr,
   if (i >= n_rows) return;
   const int br = (int)(i / B), il = (int)(i % B);
 
-  float m[R], l[R], f1r[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-    f1r[r] = k < H ? f1[i * H + k] : 0.f;
-  }
-  float acc[Q];
-  int hk[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c = lane + 32 * q;
-    acc[q] = 0.f;
-    hk[q] = c < HF ? c / F : 0;
-  }
-
+  gat::FwdRow<Q, R> row;
+  row.begin(f1, i, H, F, lane);
   const int b_end = row_ptr[br + 1];
   for (int b = row_ptr[br]; b < b_end; ++b) {
     const float* arow = blocks + ((int64_t)b * B + il) * B;
@@ -109,49 +89,11 @@ gat_fwd_kernel(const int* __restrict__ row_ptr,
       while (bits) {
         const int u = __ffs(bits) - 1;
         bits &= bits - 1;
-        const int64_t j = col0 + j0 + u;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int k = lane + 32 * r;
-          if (k < H) {
-            const float e = leaky(f1r[r] + f2[j * H + k], slope);
-            const float mn = fmaxf(m[r], e);
-            const float sc = expf(m[r] - mn);
-            const float p = expf(e - mn);
-            l[r] = l[r] * sc + p;
-            m[r] = mn;
-            scale_s[k] = sc;
-            p_s[k] = p;
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = lane + 32 * q;
-          if (c < HF) {
-            acc[q] = fmaf(p_s[hk[q]], h[j * HF + c], acc[q] * scale_s[hk[q]]);
-          }
-        }
-        __syncwarp();
+        row.edge(col0 + j0 + u, f2, h, H, HF, slope, scale_s, p_s, lane);
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    if (k < H) {
-      m_out[i * H + k] = m[r];
-      l_out[i * H + k] = l[r];
-      scale_s[k] = fmaxf(l[r], 1e-16f);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c = lane + 32 * q;
-    if (c < HF) out[i * HF + c] = acc[q] / scale_s[hk[q]];
-  }
+  row.end(i, out, m_out, l_out, H, HF, scale_s, lane);
 }
 
 template <int Q, int R>
@@ -174,24 +116,8 @@ gat_bwd_row_kernel(const int* __restrict__ row_ptr,
   if (i >= n_rows) return;
   const int br = (int)(i / B), il = (int)(i % B);
 
-  float f1r[R], mr[R], lr[R], dr[R], acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    const bool live = k < H;
-    f1r[r] = live ? f1[i * H + k] : 0.f;
-    mr[r] = live ? m_in[i * H + k] : 0.f;
-    lr[r] = live ? fmaxf(l_in[i * H + k], 1e-16f) : 1.f;
-    dr[r] = live ? d_in[i * H + k] : 0.f;
-    acc[r] = 0.f;
-  }
-  float gq[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c = lane + 32 * q;
-    gq[q] = c < HF ? g[i * HF + c] : 0.f;
-  }
-
+  gat::RowBwd<Q, R> row;
+  row.begin(f1, g, m_in, l_in, d_in, i, H, HF, lane);
   const int b_end = row_ptr[br + 1];
   for (int b = row_ptr[br]; b < b_end; ++b) {
     const float* arow = blocks + ((int64_t)b * B + il) * B;
@@ -201,35 +127,11 @@ gat_bwd_row_kernel(const int* __restrict__ row_ptr,
       while (bits) {
         const int u = __ffs(bits) - 1;
         bits &= bits - 1;
-        const int64_t j = col0 + j0 + u;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = lane + 32 * q;
-          if (c < HF) prod_s[c] = gq[q] * h[j * HF + c];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int k = lane + 32 * r;
-          if (k < H) {
-            float gh = 0.f;
-            for (int f = 0; f < F; ++f) gh += prod_s[k * F + f];
-            const float pre = f1r[r] + f2[j * H + k];
-            const float alpha = expf(leaky(pre, slope) - mr[r]) / lr[r];
-            const float dl = pre >= 0.f ? 1.f : slope;
-            acc[r] = fmaf(alpha * (gh - dr[r]), dl, acc[r]);
-          }
-        }
-        __syncwarp();
+        row.edge(col0 + j0 + u, f2, h, H, F, HF, slope, prod_s, lane);
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    if (k < H) df1[i * H + k] = acc[r];
-  }
+  row.end(i, df1, H, lane);
 }
 
 template <int Q, int R>
@@ -255,23 +157,8 @@ gat_bwd_col_kernel(const int* __restrict__ col_ptr,
   if (j >= n_cols) return;
   const int cb = (int)(j / B), jl = (int)(j % B);
 
-  float f2r[R], acc2[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    f2r[r] = k < H ? f2[j * H + k] : 0.f;
-    acc2[r] = 0.f;
-  }
-  float hq[Q], dhq[Q];
-  int hk[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c = lane + 32 * q;
-    hq[q] = c < HF ? h[j * HF + c] : 0.f;
-    dhq[q] = 0.f;
-    hk[q] = c < HF ? c / F : 0;
-  }
-
+  gat::ColBwd<Q, R> col;
+  col.begin(f2, h, j, H, F, lane);
   const int t_end = col_ptr[cb + 1];
   for (int t = col_ptr[cb]; t < t_end; ++t) {
     const int b = colmajor[t];
@@ -283,83 +170,20 @@ gat_bwd_col_kernel(const int* __restrict__ col_ptr,
       while (bits) {
         const int u = __ffs(bits) - 1;
         bits &= bits - 1;
-        const int64_t i = row0 + i0 + u;
-        float alpha[R], dl[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int k = lane + 32 * r;
-          alpha[r] = dl[r] = 0.f;
-          if (k < H) {
-            const float pre = f1[i * H + k] + f2r[r];
-            alpha[r] = expf(leaky(pre, slope) - m_in[i * H + k]) /
-                       fmaxf(l_in[i * H + k], 1e-16f);
-            dl[r] = pre >= 0.f ? 1.f : slope;
-            alpha_s[k] = alpha[r];
-          }
-        }
-        float gq[Q];
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const int c = lane + 32 * q;
-          gq[q] = 0.f;
-          if (c < HF) {
-            gq[q] = g[i * HF + c];
-            prod_s[c] = gq[q] * hq[q];
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          if (lane + 32 * q < HF) dhq[q] = fmaf(alpha_s[hk[q]], gq[q], dhq[q]);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int k = lane + 32 * r;
-          if (k < H) {
-            float gh = 0.f;
-            for (int f = 0; f < F; ++f) gh += prod_s[k * F + f];
-            acc2[r] = fmaf(alpha[r] * (gh - d_in[i * H + k]), dl[r], acc2[r]);
-          }
-        }
-        __syncwarp();
+        col.edge(row0 + i0 + u, f1, g, m_in, l_in, d_in, H, F, HF, slope,
+                 alpha_s, prod_s, lane);
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int k = lane + 32 * r;
-    if (k < H) df2[j * H + k] = acc2[r];
-  }
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c = lane + 32 * q;
-    if (c < HF) dh[j * HF + c] = dhq[q];
-  }
+  col.end(j, dh, df2, H, HF, lane);
 }
 
 bool bad_shape(int n, int B, int H, int F) {
   return n <= 0 || B <= 0 || B % 32 != 0 || n % B != 0 || H < 1 || F < 1 ||
-         H * F > kMaxHF;
+         H * F > gat::kMaxHF;
 }
 
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// Calls launch(Int<Q>, Int<R>) with the smallest instantiation that holds
-// H heads of F features: Q = 2 covers H*F <= 64 (GAT's two layers), Q = 16
-// the limit; R = 1 covers H <= 32, R = 16 the limit.
-template <typename Launch>
-cudaError_t dispatch(int H, int F, Launch&& launch) {
-  if (H * F <= 64 && H <= 32) {
-    launch(Int<2>{}, Int<1>{});
-  } else if (H <= 32) {
-    launch(Int<16>{}, Int<1>{});
-  } else {
-    launch(Int<16>{}, Int<16>{});
-  }
-  return cudaGetLastError();
-}
+using gat::dispatch;
 
 }  // namespace
 

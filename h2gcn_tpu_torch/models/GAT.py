@@ -16,10 +16,16 @@ The port of ``h2gcn_tpu.models.GAT``. Reference semantics
 Two paths compute a layer. The segment path gathers per-edge logits and
 reduces them by destination (``scatter_reduce`` and ``index_add_``); it
 expresses attention dropout and coefficient capture. The fused path
-(``--fused_attention``) runs all heads of a layer through
-:func:`~h2gcn_tpu_torch.sparse.attention.gat_attention`, the CUDA kernels
-over the BSR mask, when no per-coefficient state is needed (attention
-dropout off or eval, no capture).
+(``--fused_attention``) runs all heads of a layer through the payload that
+:func:`build_gat_adjacency` chose: the BSR mask kernels
+(:func:`~h2gcn_tpu_torch.sparse.attention.gat_attention`), or past the BSR
+budget the gather payload
+(:func:`~h2gcn_tpu_torch.sparse.attention_gather.gat_attention_gather`) or
+the COO-chunk kernels
+(:func:`~h2gcn_tpu_torch.sparse.attention_coo.gat_attention_coo`). The BSR
+and COO-chunk kernels never materialize the coefficients, so with them the
+fused path runs only without attention dropout (or in eval) and without
+capture; the gather payload takes both.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from ..nn.metrics import masked_softmax_cross_entropy
 from ..nn.ops import dropout
 from ..sparse import SparseMatrix, transforms
 from ..sparse.attention import gat_attention
+from ..sparse.attention_coo import gat_attention_coo
+from ..sparse.attention_gather import (GatherAttn, gat_attention_gather,
+                                       gather_attention_coefficients)
 from . import _runtime
 
 def segment_softmax(logits, segment_ids, num_segments, valid):
@@ -74,8 +83,9 @@ class GATNetwork(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.fused_attention = fused_attention
-        # the COO-chunk payload's head-contraction precision (not ported);
-        # the BSR kernels always run in f32, as in the JAX package
+        # "highest": f32 head contractions; "default": bf16 operands with
+        # f32 sums. The gather and COO-chunk payloads take it; the BSR
+        # kernels always run in f32, as in the JAX package
         self.fused_precision = fused_precision
         self.hid_units = list(hid_units)
         self.n_heads = list(n_heads)
@@ -151,8 +161,8 @@ class GATNetwork(nn.Module):
         return out
 
     def _fused_layer(self, heads, x, adj, *, training, generator,
-                     residual=False):
-        """All heads of one layer through the fused attention kernels."""
+                     residual=False, capture_alpha=None):
+        """All heads of one layer through the fused attention payload."""
         h_parts, f1_parts, f2_parts, xd_parts = [], [], [], []
         for p in heads:
             # the dropout structure of the segment path: logits come from
@@ -166,10 +176,25 @@ class GATNetwork(nn.Module):
             h_parts.append(dropout(hk, self.in_drop, generator,
                                    training=training))
         feat = h_parts[0].shape[1]
-        out = gat_attention(adj.bsr, torch.stack(f1_parts, dim=1),
-                            torch.stack(f2_parts, dim=1),
-                            torch.cat(h_parts, dim=1), num_heads=len(heads),
-                            feat=feat, n_out=x.shape[0])
+        f1s, f2s = torch.stack(f1_parts, dim=1), torch.stack(f2_parts, dim=1)
+        hs = torch.cat(h_parts, dim=1)
+        kw = dict(num_heads=len(heads), feat=feat, n_out=x.shape[0])
+        if isinstance(adj.attn, GatherAttn):
+            # alpha materializes per edge here: one [E, H] coefficient
+            # dropout mask a layer, drawn from the generator
+            out = gat_attention_gather(
+                adj.attn, f1s, f2s, hs, precision=self.fused_precision,
+                attn_drop=self.attn_drop if training else 0.0,
+                generator=generator, **kw)
+            if capture_alpha is not None:
+                # [E, H] -> [H, E], as the segment path's per-head stack
+                capture_alpha.append(
+                    gather_attention_coefficients(adj.attn, f1s, f2s).T)
+        elif adj.attn is not None:
+            out = gat_attention_coo(adj.attn, f1s, f2s, hs,
+                                    precision=self.fused_precision, **kw)
+        else:
+            out = gat_attention(adj.bsr, f1s, f2s, hs, **kw)
         outs = []
         for k, p in enumerate(heads):
             o = out[:, k * feat:(k + 1) * feat] + p["bias"]
@@ -186,14 +211,16 @@ class GATNetwork(nn.Module):
         every layer's attention coefficients in ``last_attn_coefs``."""
         h = x
         n_layers = len(self.layers)
-        # the fused kernels carry their own backward, so they train too;
+        # the fused payloads carry their own backward, so they train too;
         # attention dropout and coefficient capture need per-edge alpha,
-        # which they never materialize
+        # which only the gather payload materializes
+        attn = getattr(adj, "attn", None)
+        is_gather = isinstance(attn, GatherAttn)
         use_fused = (
             self.fused_attention
-            and getattr(adj, "bsr", None) is not None
-            and capture is None
-            and (not training or self.attn_drop == 0)
+            and (getattr(adj, "bsr", None) is not None or attn is not None)
+            and (capture is None or is_gather)
+            and (not training or self.attn_drop == 0 or is_gather)
         )
         all_alphas = [] if capture is not None else None
         for li, heads in enumerate(self.layers):
@@ -201,7 +228,8 @@ class GATNetwork(nn.Module):
             if use_fused:
                 outs = self._fused_layer(heads, h, adj, training=training,
                                          generator=generator,
-                                         residual=layer_residual)
+                                         residual=layer_residual,
+                                         capture_alpha=all_alphas)
             else:
                 layer_alphas = [] if capture is not None else None
                 outs = [self._attn_head(p, h, adj, training=training,
@@ -288,20 +316,30 @@ def add_subparser_args(parser):
                             "(utils/process.py:15-32, execute_cora.py)")
     group.add_argument("--patience", default=100, type=int)
     group.add_argument("--fused_attention", action="store_true",
-                       help="Use the fused attention kernels over the BSR "
-                            "mask (csrc/gat_attention.cu); the segment "
-                            "path runs instead when attention dropout is "
-                            "active or coefficients are captured")
+                       help="Use the fused attention payloads: the BSR mask "
+                            "kernels (csrc/gat_attention.cu) within the BSR "
+                            "budget, past it the gather payload "
+                            "(csrc/gscatter_weighted.cu) or the COO-chunk "
+                            "kernels (csrc/gat_attention_coo.cu); with the "
+                            "BSR and COO-chunk payloads the segment path "
+                            "runs instead when attention dropout is active "
+                            "or coefficients are captured")
     group.add_argument("--fused_precision", default="highest",
                        choices=["highest", "default"],
-                       help="Head-contraction precision of the COO-chunk "
-                            "fused payload (not ported yet; the BSR "
-                            "kernels run in f32 either way)")
+                       help="Head-contraction precision of the gather and "
+                            "COO-chunk payloads: highest = f32, default = "
+                            "bf16 operands with f32 sums (the BSR kernels "
+                            "run in f32 either way)")
     group.add_argument("--attn_impl", default="auto",
                        choices=["auto", "coo", "gather"],
-                       help="At-scale fused-attention payload past the BSR "
-                            "budget (not ported yet: must be auto, and the "
-                            "graph within the budget)")
+                       help="Fused-attention payload past the BSR budget "
+                            "(an explicit choice also overrides the "
+                            "budget): gather = edge-major softmax terms and "
+                            "weighted gather-scatter combines (also "
+                            "expresses --attn_drop), coo = flash-style "
+                            "COO-chunk kernels (no edge-sized buffers); "
+                            "auto takes gather unless its edge streams pass "
+                            "the stream budget, then coo")
     group.add_argument("--optimizer", type=str, default="adam")
     group.add_argument("--no_feature_normalize", action="store_true")
     group.add_argument("--best_val_criteria", choices=["val_acc", "val_loss"],
@@ -332,11 +370,38 @@ def build_attention_support(dataset, nhood):
     return transforms.add_eye(sum(hops[1:]))
 
 
-# The dense-block BSR payload budget: past it the JAX package moves the
-# fused attention to its O(nnz) gather or COO-chunk payloads. 256 MB is the
-# JAX package's value, chosen on a TPU; the port keeps it until it has
-# re-measured the crossover on the H100 (ROADMAP).
+# The dense-block BSR payload budget: past it the fused attention moves to
+# the O(nnz) gather or COO-chunk payloads. 256 MB is the JAX package's
+# value, chosen on a TPU; the port keeps it until the H100 crossover of the
+# three payloads (PERF.md) sets its own (ROADMAP A6).
 _BSR_PAYLOAD_BUDGET_BYTES = 256 * 1024 * 1024
+
+# The gather payload's budget for its tables and edge-sized streams: a
+# quarter of the H100's 80 GB, leaving the rest to the features, the model,
+# its activations and the allocator's slack. Past it `auto` takes the
+# COO-chunk payload, which holds no edge-sized buffer.
+_GATHER_STREAM_BUDGET_BYTES = 20 * 1024 ** 3
+
+
+def _gather_stream_bytes(n: int, nnz: int, heads: int = 8) -> int:
+    """Estimate of the device bytes the gather payload holds at its peak,
+    counting the port's own buffers (:mod:`..sparse.attention_gather`):
+
+    * the gscatter tables in both orientations: rows, cols and vals (12 B
+      a slot) and the slot -> edge map (4 B), each twice; slots estimated
+      at 115% of nnz plus 8 chunks of 128 a 512-row stripe;
+    * the edge list (two int64 columns, 16 B an edge) and the slot maps of
+      each edge (16 B);
+    * the [E, H] f32 edge streams live at once in the backward (s, p,
+      live, q, q * m, p * m, the dropout mask and an index temporary):
+      ~8 of them.
+
+    The combines gather inside the kernel, so no [slots, F] buffer exists.
+    """
+    slots = int(nnz * 1.15) + (-(-n // 512)) * 8 * 128
+    per_slot = 2 * (12 + 4)
+    per_edge = heads * 4 * 8 + 16 + 16
+    return slots * per_slot + nnz * per_edge
 
 
 def build_gat_adjacency(support, fused_attention: bool,
@@ -346,32 +411,31 @@ def build_gat_adjacency(support, fused_attention: bool,
 
     Without ``fused_attention`` the support is a segment matrix. With it, a
     graph whose 256-block BSR payload fits the budget gets the f32 mask
-    blocks the attention kernels read; the JAX package sends larger graphs
-    (and any explicit ``attn_impl``) to the gather or COO-chunk payloads,
-    which the port does not have yet, so it raises there. All keep the
-    COO arrays, so the segment path runs off the same matrix."""
+    blocks the BSR kernels read; a larger graph (or any explicit
+    ``attn_impl``) gets O(nnz) tables: the gather payload, unless its edge
+    streams would pass the stream budget, and then the COO-chunk payload
+    (``attn_impl="coo"`` forces it). All keep the COO arrays, so the
+    segment path runs off the same matrix."""
     import scipy.sparse as sp
 
     if not fused_attention:
         return SparseMatrix.from_scipy(support, backend="segment",
                                        block_size=128, device=device)
-    if attn_impl != "auto":
-        raise NotImplementedError(
-            f"--attn_impl {attn_impl}: the {attn_impl} attention payload is "
-            "not ported yet (ROADMAP "
-            f"{'B6' if attn_impl == 'coo' else 'B4'})")
     coo = sp.coo_matrix(support)
     ncb = -(-support.shape[1] // block_size)
     pair_keys = ((coo.row // block_size).astype(np.int64) * ncb
                  + coo.col // block_size)
     nb = np.unique(pair_keys).size
     payload = nb * block_size * block_size * 4
-    if payload > _BSR_PAYLOAD_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"the BSR attention mask would take {payload:,} bytes, past the "
-            f"{_BSR_PAYLOAD_BUDGET_BYTES:,}-byte budget; the gather and "
-            "COO-chunk payloads the JAX package uses there are not ported "
-            "yet (ROADMAP B4, B6)")
+    # an explicit payload overrides the BSR budget
+    if attn_impl != "auto" or payload > _BSR_PAYLOAD_BUDGET_BYTES:
+        if attn_impl == "auto":
+            attn_impl = ("coo" if _gather_stream_bytes(support.shape[0],
+                                                       coo.nnz)
+                         > _GATHER_STREAM_BUDGET_BYTES else "gather")
+        return SparseMatrix.from_scipy(support, backend="attn",
+                                       attn_tile=block_size,
+                                       attn_impl=attn_impl, device=device)
     return SparseMatrix.from_scipy(support, backend="bsr",
                                    block_size=block_size, device=device)
 

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-The sources in ``h2gcn_tpu_torch/csrc/*.cu`` include no PyTorch header and
-export plain ``extern "C"`` launchers. At first use they are compiled by one
-``nvcc`` call into ``h2gcn_tpu_torch/_build/libh2gcn_kernels_<hash>.so``
-(``<hash>`` covers the sources' contents, so an edit rebuilds) and loaded
-with :mod:`ctypes`. Nothing here runs at import time: a CPU-only machine
-imports the port without ``nvcc``.
+The sources in ``h2gcn_tpu_torch/csrc/*.cu`` (and the ``*.cuh`` headers
+they share) include no PyTorch header and export plain ``extern "C"``
+launchers. At first use each source is compiled by its own ``nvcc -c``, all
+of them at once, and one more ``nvcc`` links the objects into
+``h2gcn_tpu_torch/_build/libh2gcn_kernels_<hash>.so`` (``<hash>`` covers the
+sources' and headers' contents, so an edit rebuilds), which is loaded with
+:mod:`ctypes`. Nothing here runs at import time: a CPU-only machine imports
+the port without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ BUILD_DIR = _PKG / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argument types; every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -35,6 +38,11 @@ _SIGNATURES = {
     "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_col": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
+    "h2gcn_gat_coo_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    "h2gcn_gat_coo_bwd_row": [_P] * 14 + [_I] * 7 + [_F, _I, _P],
+    "h2gcn_gat_coo_bwd_col": [_P] * 15 + [_I] * 7 + [_F, _I, _P],
+    "h2gcn_gscatter_weighted": [_P] * 5 + [_L, _L, _I, _P, _P, _I, _I, _P,
+                                           _I, _P] + [_I] * 6 + [_P],
 }
 
 
@@ -57,10 +65,48 @@ def sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libh2gcn_kernels_{h.hexdigest()[:16]}.so"
+
+
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+
+
+def _compile(so: Path) -> str:
+    """Compile every source into an object at once, then link ``so``.
+    Returns the compilers' output; raises if any step fails."""
+    nvcc = _nvcc()
+    stem = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc] + _ARCH + ["-c", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+                                "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc] + _ARCH + ["-shared", "-o", str(so)] + [str(o) for o in objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (BUILD_DIR / "nvcc.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
+    return text
 
 
 @functools.lru_cache(maxsize=1)
@@ -75,18 +121,13 @@ def library():
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v", "-o", str(tmp)] + [str(s) for s in sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        (BUILD_DIR / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        try:
+            _compile(tmp)
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            raise
+        seconds = time.perf_counter() - t0
         os.replace(tmp, so)  # atomic: a concurrent build sees all or none
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

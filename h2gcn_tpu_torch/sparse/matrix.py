@@ -10,6 +10,10 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
 ``bsr``       dense B x B blocks: 128-blocks for ``csrc/bsr_spmm.cu``
               (:mod:`.bsr_spmm`), 256-blocks as the GAT attention mask of
               ``csrc/gat_attention.cu`` (:mod:`.attention`).
+``attn``      the COO arrays plus an O(nnz) fused-attention payload for
+              GAT past the BSR budget: gather tables (:mod:`.attention_gather`)
+              or COO-chunk tables (:mod:`.attention_coo`). Its SpMM runs on
+              the COO arrays, as ``segment``.
 
 :func:`spmm` is differentiable in ``x``: its backward is ``spmm`` of the
 transpose view, which carries the transpose payload (or, for a symmetric
@@ -25,6 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .attention_coo import build_attn_coo
+from .attention_gather import build_gatherattn
 from .bsr_spmm import bsr_spmm
 from .gscatter import GScatter, build_gscatter, gscatter_spmm
 
@@ -91,6 +97,8 @@ class SparseMatrix:
     symmetric: bool = False
     # "highest": f32 operands; "default": bf16 operands, f32 sums
     precision: str = "highest"
+    # the fused-attention payload of backend "attn" (AttnCoo or GatherAttn)
+    attn: Optional[object] = None
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -119,7 +127,10 @@ class SparseMatrix:
             gsc_t=self.gsc,
             shape=(self.shape[1], self.shape[0]),
             nnz=self.nnz,
-            backend=self.backend,
+            # the attention payloads are orientation-specific and their
+            # backward never dispatches through a transposed view: the view
+            # carries none and reports "segment"
+            backend="segment" if self.backend == "attn" else self.backend,
             symmetric=False,
             precision=self.precision,
         )
@@ -133,21 +144,26 @@ class SparseMatrix:
         block_size: int = _DEFAULT_BLOCK,
         precision: str = "highest",
         device="cpu",
+        attn_tile: int = 256,
+        attn_impl: str = "coo",
     ) -> "SparseMatrix":
         """Build from any scipy sparse matrix on the host, then move to
         ``device``. Values are f32; the dense and BSR payloads are stored
         in bf16 for ``precision="default"`` (read in half the bytes). A
         non-symmetric matrix also gets the transpose payload its backward
-        reads."""
+        reads. ``backend="attn"`` builds the ``attn_impl`` ("gather" or
+        "coo", with ``attn_tile``-row tiles) attention payload."""
         import scipy.sparse as sp
 
         device = torch.device(device)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown sparse backend {backend!r}")
-        if backend in ("cootile", "attn"):
+        if backend == "cootile":
             raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP queue B: "
-                f"{'B3 cootile_spmm' if backend == 'cootile' else 'B4-B6 fused GAT attention'})")
+                "backend 'cootile' is not ported yet (ROADMAP queue B: B3 "
+                "cootile_spmm)")
+        if backend == "attn" and attn_impl not in ("gather", "coo"):
+            raise ValueError(f"unknown attention payload {attn_impl!r}")
         pdt = torch.bfloat16 if precision == "default" else torch.float32
         dtype = np.float32
 
@@ -191,6 +207,13 @@ class SparseMatrix:
             if not symmetric:
                 gsc_t = build_gscatter(sp.csr_matrix(csr.T), device=device)
 
+        attn = None
+        if backend == "attn":
+            if attn_impl == "gather":
+                attn = build_gatherattn(csr, device=device)
+            else:
+                attn = build_attn_coo(csr, tile=attn_tile, device=device)
+
         t_perm = None
         if not symmetric:
             t_perm = torch.from_numpy(
@@ -210,6 +233,7 @@ class SparseMatrix:
             backend=backend,
             symmetric=symmetric,
             precision=precision,
+            attn=attn,
         )
 
 
@@ -303,7 +327,7 @@ def _spmm_impl(sm: SparseMatrix, x: torch.Tensor) -> torch.Tensor:
         return bsr_spmm(sm.bsr, x, n_out=sm.shape[0], precision=sm.precision)
     if sm.backend == "gscatter" and sm.gsc is not None:
         return gscatter_spmm(sm.gsc, x, precision=sm.precision)
-    if sm.backend != "segment" and x.device.type != "cpu":
+    if sm.backend not in ("segment", "attn") and x.device.type != "cpu":
         # on the card a kernel backend launches its kernel or raises
         raise RuntimeError(
             f"spmm: backend {sm.backend!r} has no payload for this matrix "

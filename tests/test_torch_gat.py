@@ -162,16 +162,16 @@ def test_gat_adjacency_routing(monkeypatch):
     jseg = jgat.build_gat_adjacency(support, fused_attention=False)
     assert seg.backend == jseg.backend == "segment" and seg.bsr is None
     assert seg.nnz == jseg.nnz == support.nnz
-    # past the BSR budget the JAX package takes the gather payload
-    # (ROADMAP B4), which the port does not have yet
+    # past the BSR budget both packages take the gather payload, and an
+    # explicit payload overrides the budget
     monkeypatch.setattr(jgat, "_BSR_PAYLOAD_BUDGET_BYTES", 1)
     monkeypatch.setattr(tgat, "_BSR_PAYLOAD_BUDGET_BYTES", 1)
-    assert jgat.build_gat_adjacency(support, True).backend == "attn"
-    with pytest.raises(NotImplementedError, match="B4, B6"):
-        tgat.build_gat_adjacency(support, True)
-    for impl, item in (("coo", "B6"), ("gather", "B4")):
-        with pytest.raises(NotImplementedError, match=item):
-            tgat.build_gat_adjacency(support, True, attn_impl=impl)
+    for impl in ("auto", "coo", "gather"):
+        j = jgat.build_gat_adjacency(support, True, attn_impl=impl)
+        t = tgat.build_gat_adjacency(support, True, attn_impl=impl)
+        assert t.backend == j.backend == "attn" and t.bsr is None
+        assert type(t.attn).__name__ == type(j.attn).__name__
+        assert t.nnz == j.nnz == support.nnz
 
 
 def test_patience_controller_matches_jax():
@@ -239,9 +239,9 @@ def test_cli_trains_gat_fused_on_cpu(planetoid, tmp_path, capsys):
 
 
 def test_cli_refuses_an_unported_payload(planetoid, tmp_path):
-    with pytest.raises(NotImplementedError, match="B6"):
+    # every GAT payload is ported; the SpMM ladder's cootile is not (B3)
+    with pytest.raises(NotImplementedError, match="B3"):
         run_experiments.main([
-            "GAT", "planetoid", "--dataset", "ind.syn", "--dataset_path",
-            planetoid, "--device", "cpu", "--fused_attention",
-            "--attn_impl", "coo", "--epochs", "1", "--checkpoint_dir",
-            str(tmp_path / "ck")])
+            "H2GCN", "planetoid", "--dataset", "ind.syn", "--dataset_path",
+            planetoid, "--device", "cpu", "--sparse_backend", "cootile",
+            "--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck")])

@@ -7,7 +7,12 @@ kernels sum in another order than index_add_ / einsum (atomics, tiles), so
 the error is held at 1e-5 of the output's scale; bf16 rounding is the same
 on both sides. The GAT attention kernels also rescale their online softmax
 edge by edge where the plain versions take each row's max at once, so they
-are held at 1e-4 of the output's scale, the gate of chip_smoke.py."""
+are held at 1e-4 of the output's scale, the gate of chip_smoke.py; so is the
+weighted gather-scatter combine of the gather attention, whose weights come
+from the softmax. The COO-chunk kernels in "default" precision round their
+contraction operands to bf16 at the running row max where the plain
+version rounds at the final one, so they are held at 3e-2 of the output's
+scale, the JAX package's bound for its bf16 mode."""
 
 import dataclasses
 
@@ -19,11 +24,14 @@ import torch
 from h2gcn_tpu_torch.models import GAT as tgat
 from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
 from h2gcn_tpu_torch.sparse import attention as tatt
+from h2gcn_tpu_torch.sparse import attention_coo as tcoo
+from h2gcn_tpu_torch.sparse import attention_gather as tgat_
 from h2gcn_tpu_torch.sparse import bsr_spmm as tbsr
 from h2gcn_tpu_torch.sparse import gscatter as tgs
 
 TOL = 1e-5
 GAT_TOL = 1e-4
+BF16_TOL = 3e-2
 
 
 @pytest.fixture
@@ -244,6 +252,207 @@ def test_gat_model_fused_matches_segment_on_the_card(cuda):
     before = tatt.gat_fwd_stats.launches
     fused = model(adj, x, [], training=False)
     assert tatt.gat_fwd_stats.launches == before + 2
+    model.fused_attention = False
+    seg = model(adj, x, [], training=False)
+    _close(fused.detach(), seg.detach(), GAT_TOL)
+
+
+def _hub_mask(n, hubs, seed):
+    """A symmetric self-looped mask whose first ``hubs`` nodes link to every
+    node: one tile holds more slots than shared memory (the workspace
+    path), and each hub row and column has n edges."""
+    a = _mask(n, 128, seed).tolil()
+    a[:hubs, :] = 1
+    a[:, :hubs] = 1
+    return a.tocsr()
+
+
+# (T, n, H, F, self loops, an empty tile row and column, hub nodes,
+# segment size); the wide cases take the kernels' other instantiations
+COO_CASES = [(256, 2708, 8, 8, True, False, 0, None),
+             (256, 2708, 1, 7, True, False, 0, None),
+             (128, 600, 3, 7, False, True, 0, 16),
+             (128, 500, 40, 3, True, False, 0, None),
+             (256, 300, 1, 512, True, False, 0, None),
+             (128, 300, 2, 256, True, True, 0, 8),
+             (256, 3000, 8, 8, True, False, 24, None)]
+
+
+def _coo_inputs(case, cuda):
+    T, n, H, F, loops, empty, hubs, max_chunks = case
+    a = _hub_mask(n, hubs, 7) if hubs else _mask(n, T, 7, loops, empty)
+    ac = tcoo.build_attn_coo(a, tile=T, max_chunks=max_chunks, device=cuda)
+    n_pad = ac.n_tiles * T
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    return ac, f1, f2, h, g
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", COO_CASES, ids=str)
+def test_coo_kernels_match_plain(cuda, case, precision):
+    T, n, H, F, loops, empty, hubs, max_chunks = case
+    ac, f1, f2, h, g = _coo_inputs(case, cuda)
+    if hubs:  # the fullest tile's list does not fit in shared memory
+        assert ac.fwd[0].max_tile_slots * 4 > tcoo._SMEM_BYTES
+    kw = dict(num_heads=H, feat=F, precision=precision)
+    tol = GAT_TOL if precision == "highest" else BF16_TOL
+    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
+                tcoo.coo_bwd_col.launches)
+    out, m, l = tcoo.coo_fwd_stats(ac, f1, f2, h, **kw)
+    ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
+    d = tatt.head_dots(g, ref[0], H, F)
+    df1 = tcoo.coo_bwd_row(ac, f1, f2, h, g, *ref[1:], d, **kw)
+    dh, df2 = tcoo.coo_bwd_col(ac, f1, f2, h, g, *ref[1:], d, **kw)
+    torch.cuda.synchronize()
+    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
+            tcoo.coo_bwd_col.launches) == (
+                launches[0] + len(ac.fwd), launches[1] + len(ac.fwd),
+                launches[2] + len(ac.bwd))
+    if max_chunks:
+        assert len(ac.fwd) > 1 and len(ac.bwd) > 1
+    _close(out, ref[0], tol)
+    for got, want in zip((m, l), ref[1:]):  # f32 statistics either way
+        _close(got, want, GAT_TOL)
+    _close(df1, tcoo.coo_bwd_row_plain(ac, f1, f2, h, g, *ref[1:], d, **kw),
+           tol)
+    for got, want in zip((dh, df2), tcoo.coo_bwd_col_plain(
+            ac, f1, f2, h, g, *ref[1:], d, **kw)):
+        _close(got, want, tol)
+    if empty:  # rows without an edge keep the sentinel state exactly
+        assert (l[T:2 * T] == 0).all() and (out[T:2 * T] == 0).all()
+        assert (m[T:2 * T] == tatt.NEG_INF).all()
+        assert (dh[T:2 * T] == 0).all() and (df2[T:2 * T] == 0).all()
+
+
+def test_coo_default_precision_is_near_f32(cuda):
+    case = COO_CASES[0]
+    ac, f1, f2, h, _ = _coo_inputs(case, cuda)
+    kw = dict(num_heads=case[2], feat=case[3])
+    out = tcoo.coo_fwd_stats(ac, f1, f2, h, precision="default", **kw)[0]
+    ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)[0]
+    _close(out, ref, BF16_TOL)
+
+
+def test_gat_attention_coo_backward_launches_its_kernels(cuda):
+    n, H, F = 1000, 8, 8
+    a = _mask(n, 256, 8)
+    ac = tcoo.build_attn_coo(a, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xs = [torch.randn(n, w, generator=gen, device=cuda, requires_grad=True)
+          for w in (H, H, H * F)]
+    gw = torch.randn(n, H * F, generator=gen, device=cuda)
+    before = tcoo.coo_fwd_stats.launches
+    out = tcoo.gat_attention_coo(ac, *xs, num_heads=H, feat=F, n_out=n)
+    assert tcoo.coo_fwd_stats.launches == before + 1
+    rows, cols = tcoo.coo_bwd_row.launches, tcoo.coo_bwd_col.launches
+    (out * gw).sum().backward()
+    torch.cuda.synchronize()
+    assert tcoo.coo_bwd_row.launches == rows + 1
+    assert tcoo.coo_bwd_col.launches == cols + 1
+    # the same on the CPU, through the plain versions
+    cpu = tcoo.build_attn_coo(a)
+    xc = [x.detach().cpu().requires_grad_(True) for x in xs]
+    outc = tcoo.gat_attention_coo(cpu, *xc, num_heads=H, feat=F, n_out=n)
+    (outc * gw.cpu()).sum().backward()
+    _close(out.detach().cpu(), outc.detach(), GAT_TOL)
+    for x, c in zip(xs, xc):
+        _close(x.grad.cpu(), c.grad, GAT_TOL)
+
+
+# (n, m, H, fw, augmented, hub rows); m != n is a rectangular support
+WEIGHTED_CASES = [(2708, 2708, 8, 9, True, 0), (2708, 2708, 8, 8, False, 0),
+                  (900, 1300, 1, 8, True, 0), (700, 700, 1, 512, False, 0),
+                  (600, 600, 8, 65, True, 0), (3000, 3000, 8, 9, True, 24)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", WEIGHTED_CASES, ids=str)
+def test_gscatter_weighted_matches_plain(cuda, case, precision):
+    n, m, H, fw, aug, hubs = case
+    a = _hub_mask(n, hubs, 11) if hubs else _rand(n, m, 6 * n, 11)
+    ga = tgat_.build_gatherattn(a, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    E = ga.num_edges
+    wf = torch.rand(E, H, generator=gen, device=cuda)
+    wf[torch.rand(E, H, generator=gen, device=cuda) < 0.3] = 0  # dropout
+    wl = torch.rand(E, H, generator=gen, device=cuda) if aug else None
+    kw = dict(num_heads=H, wl=wl, precision=precision)
+    for gs, s2e, x_rows in ((ga.fwd, ga.slot2edge_fwd, ga.num_src),
+                            (ga.bwd, ga.slot2edge_bwd, n)):
+        x = torch.randn(x_rows, H * fw, generator=gen, device=cuda)
+        before = tgat_.gscatter_weighted.launches
+        got = tgat_.gscatter_weighted(gs, s2e, wf, x, **kw)
+        torch.cuda.synchronize()
+        assert tgat_.gscatter_weighted.launches == before + len(gs.segments)
+        _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x, **kw),
+               GAT_TOL)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_gather_attention_matches_cpu(cuda, drop):
+    n, H, F = 2708, 8, 8
+    a = _mask(n, 256, 12)
+    ga = tgat_.build_gatherattn(a, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xs = [torch.randn(n, w, generator=gen, device=cuda, requires_grad=True)
+          for w in (H, H, H * F)]
+    gw = torch.randn(n, H * F, generator=gen, device=cuda)
+    m = None
+    if drop:
+        m = torch.where(torch.rand(ga.num_edges, H, generator=gen,
+                                   device=cuda) < 0.4, 2.5, 0.0)
+    before = tgat_.gscatter_weighted.launches
+    out = tgat_.gather_attention(ga, *xs, m, num_heads=H, feat=F)
+    (out * gw).sum().backward()
+    torch.cuda.synchronize()
+    assert tgat_.gscatter_weighted.launches == before + 4  # fwd, dh, df1, df2
+    cpu = tgat_.build_gatherattn(a)
+    xc = [x.detach().cpu().requires_grad_(True) for x in xs]
+    outc = tgat_.gather_attention(cpu, *xc, None if m is None else m.cpu(),
+                                  num_heads=H, feat=F)
+    (outc * gw.cpu()).sum().backward()
+    _close(out.detach().cpu(), outc.detach(), GAT_TOL)
+    for x, c in zip(xs, xc):
+        _close(x.grad.cpu(), c.grad, GAT_TOL)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a = _mask(300, 128, 9)
+    ac = tcoo.build_attn_coo(a, tile=128, device=cuda)
+    n_pad = ac.n_tiles * 128
+    f = torch.zeros(n_pad, 1, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        tcoo.coo_fwd_stats(ac, f, f, torch.zeros(n_pad, 513, device=cuda),
+                           num_heads=1, feat=513)
+    with pytest.raises(ValueError, match="float32"):
+        tcoo.coo_fwd_stats(ac, f[:10], f, torch.zeros(n_pad, 8, device=cuda),
+                           num_heads=1, feat=8)
+    ga = tgat_.build_gatherattn(a, device=cuda)
+    x = torch.zeros(300, 16, device=cuda)
+    with pytest.raises(ValueError, match="wf"):
+        tgat_.gscatter_weighted(ga.fwd, ga.slot2edge_fwd,
+                                torch.zeros(ga.num_edges, 3, device=cuda), x,
+                                num_heads=2)
+
+
+@pytest.mark.parametrize("impl", ["gather", "coo"])
+def test_gat_model_at_scale_payloads_match_segment_on_the_card(cuda, impl):
+    n, d, c = 2708, 64, 7
+    support = _mask(n, 256, 10)
+    x = torch.rand(n, d, device=cuda)
+    model = tgat.GATNetwork(c, fused_attention=True, attn_drop=0.0)
+    model.init(d, 1, torch.Generator().manual_seed(0), cuda)
+    adj = tgat.build_gat_adjacency(support, True, attn_impl=impl, device=cuda)
+    assert adj.backend == "attn"
+    counter = (tgat_.gscatter_weighted if impl == "gather"
+               else tcoo.coo_fwd_stats)
+    before = counter.launches
+    fused = model(adj, x, [], training=False)
+    assert counter.launches == before + 2
     model.fused_attention = False
     seg = model(adj, x, [], training=False)
     _close(fused.detach(), seg.detach(), GAT_TOL)

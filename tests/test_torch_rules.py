@@ -26,7 +26,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for mod in ("sparse.gscatter", "sparse.bsr_spmm", "sparse.attention",
-                "models.GAT"):
+                "sparse.attention_coo", "sparse.attention_gather",
+                "sparse.cootile", "models.GAT"):
         assert f"h2gcn_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

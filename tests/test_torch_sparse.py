@@ -73,9 +73,19 @@ def test_coo_arrays_and_transpose_view_match_jax():
 def test_backend_rules():
     a = _matrix("symmetric")
     assert TSM.from_scipy(a).backend == "segment"  # auto on the CPU
-    for backend in ("cootile", "attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSM.from_scipy(a, backend=backend)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TSM.from_scipy(a, backend="cootile")
+    # "attn" keeps the COO arrays and an attention payload; its SpMM runs
+    # on the COO arrays, as "segment"
+    for impl, kind in (("coo", "AttnCoo"), ("gather", "GatherAttn")):
+        tm = TSM.from_scipy(a, backend="attn", attn_impl=impl)
+        assert tm.backend == "attn" and type(tm.attn).__name__ == kind
+        x = np.random.default_rng(0).standard_normal(
+            (a.shape[1], 4)).astype(np.float32)
+        np.testing.assert_allclose(tspmm(tm, torch.from_numpy(x)).numpy(),
+                                   a @ x, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        TSM.from_scipy(a, backend="attn", attn_impl="nope")
     with pytest.raises(ValueError):
         TSM.from_scipy(a, backend="nope")
 
