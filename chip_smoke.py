@@ -6,7 +6,9 @@
 Needs one CUDA GPU and nvcc; exits non-zero without them. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from ``h2gcn_tpu_torch/csrc`` with nvcc;
+2. builds the CUDA kernels from ``h2gcn_tpu_torch/csrc`` with nvcc, and the
+   native host library (exact-hop split, RCM order) with g++, and fails if
+   the host path would be scipy's;
 3. holds each kernel (gscatter_spmm, bsr_spmm) against its plain PyTorch
    version on the card, forward and autograd backward, in both precisions,
    at the shapes of the main path: the 10K-node synthetic graph of
@@ -51,7 +53,23 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    trains fused), ``auto`` with ``--attn_drop 0``, and ``--attn_impl coo
    --attn_drop 0``, and checks each run's route and launches, finite
    losses, a checkpoint, and the trained logits against the segment path;
-9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+9. (``cootile_kernels``) holds the COO-tile SpMM (cootile_spmm) against its
+   plain version on the card, forward and autograd backward, in both
+   precisions at F = 64 and 128, on the 10K graph's A2 and RW-normalized A1
+   (whose backward reads the transpose tables) and on the 250K-node graph
+   of the JAX package's bench_large.py (``scale_graph``: 799,540 adjacency
+   and 24,999,792 A2 entries) with its A1 and A2 cluster-ordered; prints
+   each case's error, tolerance, times and bound and each matrix's heaviest
+   tile row, and times A2 at 250K (F = 64, "highest") at tiles 256, 512 and
+   1024, the sweep that set the port's default tile;
+10. (``cootile_cli``) trains H2GCN-2 for 5 epochs through the CLI with
+   ``--sparse_backend cootile`` on the 10K graph, and on the 250K graph
+   written as planetoid files with ``--reorder cluster --sparse_features``;
+   checks the launches, finite losses, a checkpoint and the trained logits
+   (at 250K mapped back to the original node order, against the same
+   weights through the segment SpMM on the un-reordered graph), and prints
+   the epoch time, the host set-up seconds and the peak device memory;
+11. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 """
@@ -143,6 +161,13 @@ def write_planetoid(path, name, adj, seed=0, n_feat=1433, feats_per_row=18,
         f.write("\n".join(str(i) for i in test_idx) + "\n")
 
 
+def scale_graph():
+    """The JAX package's at-scale graph (bench_large.py's defaults): 250,000
+    nodes, 400,000 drawn edges; 799,540 adjacency entries and 24,999,792 in
+    its exact-2-hop matrix."""
+    return build_graph(n=250_000, m_edges=400_000, seed=0)
+
+
 def cora_graph(seed=1, skew=0.6):
     """A Cora-shaped graph: 2,708 nodes, 5,429 undirected edges drawn as
     build_graph draws them."""
@@ -178,6 +203,20 @@ def _bound(nbytes, ops, dtype):
                                        else "operations")
 
 
+def _library_csr(mat, device):
+    """``mat`` as a torch sparse CSR tensor on ``device``: the operand of
+    the library call each SpMM kernel is timed beside."""
+    import torch
+
+    coo = mat.tocoo()
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.from_numpy(np.vstack([coo.row, coo.col]).astype(np.int64)),
+            torch.from_numpy(coo.data.astype(np.float32)),
+            mat.shape, check_invariants=True).to(device).to_sparse_csr()
+
+
 def check_kernels(device):
     """Phase 3: every kernel against its plain version at the path's
     shapes. Returns {kernel: [case dicts]}."""
@@ -199,13 +238,7 @@ def check_kernels(device):
     results = {"gscatter_spmm": [], "bsr_spmm": []}
     for mname, mat in mats.items():
         n, m = mat.shape
-        coo = mat.tocoo()
-        with warnings.catch_warnings():  # "sparse CSR support is in beta"
-            warnings.simplefilter("ignore", UserWarning)
-            lib_a = torch.sparse_coo_tensor(
-                torch.from_numpy(np.vstack([coo.row, coo.col]).astype(np.int64)),
-                torch.from_numpy(coo.data.astype(np.float32)),
-                (n, m), check_invariants=True).to(device).to_sparse_csr()
+        lib_a = _library_csr(mat, device)
         for kernel in ("gscatter_spmm", "bsr_spmm"):
             backend = kernel.split("_")[0]
             for precision in ("highest", "default"):
@@ -282,6 +315,8 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
         csr = sm.to_scipy()
         shape_info = {"max_stripe_nnz": int(np.add.reduceat(
             np.diff(csr.indptr), np.arange(0, n, sm.gsc.tile)).max())}
+    elif kernel == "cootile_spmm":
+        shape_info = _cootile_shape(sm.coot, sm.nnz)
     else:
         # what the dense 128 x 128 blocks cost at least: the padding the
         # BSR layout adds on top of the bound
@@ -299,8 +334,126 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def run_cli(backend, data_dir, name, device):
-    """Phase 4: H2GCN-2 for EPOCHS epochs through the CLI."""
+def _cootile_shape(ct, nnz):
+    """What sets a COO-tile SpMM's work beside its edges: the geometry, the
+    padding slots and the heaviest tile row (spread over thread blocks)."""
+    return {"tile": ct.tile, "e_b": ct.e_b, "chunks": ct.num_chunks,
+            "slot_fill": nnz / (ct.num_chunks * ct.e_b),
+            "heaviest_row_chunks": ct.heaviest_row_chunks()}
+
+
+def cootile_matrices():
+    """Phase 9's matrices: the 10K graph's A2 (the headline shape, beside
+    rows 1-2 of the kernel table) and RW-normalized A1 (not symmetric: its
+    backward reads the transpose tables); the 250K graph's A1 and A2,
+    cluster-ordered as ``get_tensors(reorder="cluster")`` orders them (by
+    the union pattern of the normalized hops)."""
+    from h2gcn_tpu_torch.sparse import transforms
+
+    split = transforms.nhood_split(build_graph(), 2)
+    mats = {"A2": transforms.normalize(split[2]).tocsr(),
+            "A1_rw": transforms.normalize(
+                split[1], transforms.NType.RW_NORMALIZED).tocsr()}
+    split = transforms.nhood_split(scale_graph(), 2)
+    a1, a2 = (transforms.normalize(split[k]).tocsr() for k in (1, 2))
+    perm = transforms.cluster_order(abs(a1) + abs(a2))
+    mats["A1c_250k"] = transforms.permute_graph(a1, perm)
+    mats["A2c_250k"] = transforms.permute_graph(a2, perm)
+    return mats
+
+
+SWEEP_TILES = (256, 512, 1024)
+
+
+def check_cootile_kernels(device):
+    """Phase 9: cootile_spmm against its plain version, forward and
+    backward, timed; the tile sweep. Returns [case dicts]."""
+    import dataclasses
+
+    import torch
+
+    from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
+    from h2gcn_tpu_torch.sparse.cootile import (build_cootile, cootile_spmm,
+                                                cootile_spmm_plain)
+
+    t0 = time.perf_counter()
+    mats = cootile_matrices()
+    emit({"cootile_matrices": {k: v.nnz for k, v in mats.items()},
+          "s": time.perf_counter() - t0})
+    gen = torch.Generator(device=device).manual_seed(3)
+    results = []
+    for mname in list(mats):
+        mat = mats.pop(mname)
+        t0 = time.perf_counter()
+        n, m = mat.shape
+        # one table set serves both precisions
+        sm = SparseMatrix.from_scipy(mat, backend="cootile", device=device)
+        lib_a = _library_csr(mat, device)
+        emit(dict(_cootile_shape(sm.coot, sm.nnz), matrix=mname, n=n,
+                  nnz=sm.nnz, symmetric=sm.symmetric,
+                  build_s=time.perf_counter() - t0))
+        for precision in ("highest", "default"):
+            s = dataclasses.replace(sm, precision=precision)
+            sT = s.transpose_view()
+            for F in (64, 128):
+                t0 = time.perf_counter()
+                x = torch.randn(m, F, generator=gen, device=device)
+                g = torch.randn(n, F, generator=gen, device=device)
+                xr = x.clone().requires_grad_(True)
+                y = spmm(s, xr)
+                y.backward(g)
+                torch.cuda.synchronize()
+
+                def run(x=x, s=s):
+                    return cootile_spmm(s.coot, x, precision=s.precision)
+
+                def plain(a, v, prec=precision):
+                    return cootile_spmm_plain(a.coot, v, precision=prec)
+
+                for direction, got, ref in (
+                        ("forward", y.detach(), plain(s, x)),
+                        ("backward", xr.grad, plain(sT, g))):
+                    if got.shape != ref.shape or not torch.isfinite(got).all():
+                        raise AssertionError(
+                            f"cootile_spmm {mname} F={F} {precision} "
+                            f"{direction}: bad output {tuple(got.shape)}")
+                    err = float((got - ref).abs().max())
+                    tol = TOL * max(1.0, float(ref.abs().max()))
+                    case = dict(kernel="cootile_spmm", matrix=mname,
+                                nnz=sm.nnz, F=F, precision=precision,
+                                direction=direction, max_abs_err=err,
+                                tol=tol)
+                    if err > tol:
+                        emit(case)
+                        raise AssertionError("cootile_spmm disagrees with "
+                                             f"its plain version: {case}")
+                    if direction == "forward":
+                        case.update(_times("cootile_spmm", s, x, run, plain,
+                                           lib_a, precision))
+                    case["s"] = time.perf_counter() - t0
+                    emit(case)
+                    results.append(case)
+                del x, g, xr, y
+        if mname == "A2c_250k":
+            # the default tile: A2 at 250K, F = 64, "highest"
+            x = torch.randn(m, 64, generator=gen, device=device)
+            for tile in SWEEP_TILES:
+                t0 = time.perf_counter()
+                ct = (sm.coot if tile == sm.coot.tile
+                      else build_cootile(mat, tile=tile, device=device))
+                build_s = time.perf_counter() - t0
+                emit(dict(_cootile_shape(ct, sm.nnz), tile_sweep=mname, F=64,
+                          kernel_ms=time_ms(lambda: cootile_spmm(ct, x), 20),
+                          build_s=build_s, s=time.perf_counter() - t0))
+                del ct
+        del sm, lib_a, mat
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_cli(backend, data_dir, name, device, extra=()):
+    """Phases 4 and 10: H2GCN-2 for EPOCHS epochs through the CLI with
+    ``--sparse_backend backend`` and the ``extra`` flags."""
     import glob
 
     import torch
@@ -308,57 +461,78 @@ def run_cli(backend, data_dir, name, device):
     from h2gcn_tpu_torch import run_experiments
     from h2gcn_tpu_torch.sparse import SparseMatrix
     from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
     from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
 
     t0 = time.perf_counter()
-    ckpt_dir = os.path.join(data_dir, f"ckpt_{backend}")
+    tag = " ".join([name, backend, *extra])
+    ckpt_dir = os.path.join(data_dir, f"ckpt_{name}_{backend}")
     argv = ["H2GCN", "planetoid", "--dataset", f"ind.{name}",
             "--dataset_path", data_dir, "--sparse_backend", backend,
             "--epochs", str(EPOCHS), "--timing", "--random_seed", "123",
-            "--checkpoint_dir", ckpt_dir]
-    gscatter_spmm.launches = 0
-    bsr_spmm.launches = 0
+            "--checkpoint_dir", ckpt_dir, *extra]
+    counters = {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
+                "cootile_spmm": cootile_spmm}
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
-    launches = {"gscatter_spmm": gscatter_spmm.launches,
-                "bsr_spmm": bsr_spmm.launches}
+    main_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated(device)
+    launches = {k: c.launches for k, c in counters.items()}
     kernel = f"{backend}_spmm"
     if launches[kernel] == 0:
-        raise AssertionError(f"--sparse_backend {backend}: {kernel} was "
-                             "never launched")
+        raise AssertionError(f"{tag}: {kernel} was never launched")
     stats = args.objects["epoch_stats"]
     for key in ("train_loss", "val_loss", "test_loss"):
         if not np.isfinite(float(stats[key])):
-            raise AssertionError(f"{backend}: {key} = {float(stats[key])}")
+            raise AssertionError(f"{tag}: {key} = {float(stats[key])}")
     if not glob.glob(os.path.join(ckpt_dir, "*", "ckpt.pt")):
-        raise AssertionError(f"{backend}: no checkpoint under {ckpt_dir}")
+        raise AssertionError(f"{tag}: no checkpoint under {ckpt_dir}")
 
-    # the trained weights through the kernels and through index_add_
+    # the trained weights through the kernels and through index_add_; a
+    # reordered run's logits go back to the original node order and meet
+    # the un-reordered graph
     tensors = args.objects["tensors"]
     model = args.objects["model"]
     with torch.no_grad():
-        logits = args.objects["predict_step"](**tensors)
-        seg_hops = [SparseMatrix.from_scipy(h.to_scipy(), backend="segment",
-                                            device=device)
-                    for h in tensors["adj_hops"]]
-        ref = model(tensors["adj"], tensors["features"], seg_hops)
+        logits = args.objects["original_order"](
+            args.objects["predict_step"](**tensors))
+        if "node_perm" in tensors:
+            ref_t = vars(args.objects["dataset"].get_tensors(
+                get_adj_norm_hops=args.adj_nhood, backend="segment",
+                sparse_features=args.sparse_features, device=device))
+        else:
+            ref_t = dict(tensors, adj_hops=[
+                SparseMatrix.from_scipy(h.to_scipy(), backend="segment",
+                                        device=device)
+                for h in tensors["adj_hops"]])
+        ref = model(ref_t["adj"], ref_t["features"], ref_t["adj_hops"])
+        del ref_t
     n, n_classes = tensors["y_all"].shape
     if tuple(logits.shape) != (n, n_classes) or not torch.isfinite(logits).all():
-        raise AssertionError(f"{backend}: bad logits {tuple(logits.shape)}")
+        raise AssertionError(f"{tag}: bad logits {tuple(logits.shape)}")
     logit_err = float((logits - ref).abs().max())
     logit_tol = TOL * max(1.0, float(ref.abs().max()))
     if logit_err > logit_tol:
-        raise AssertionError(f"{backend}: logits differ from the plain SpMM "
+        raise AssertionError(f"{tag}: logits differ from the plain SpMM "
                              f"by {logit_err} > {logit_tol}")
     times = args.objects["epoch_times"]
     epoch_ms, epoch_ms_median = run_experiments.steady_epoch_ms(times)
-    emit({"cli": backend, "epochs": len(times),
+    prep = tensors["prep_seconds"]
+    emit({"cli": backend, "graph": name, "flags": list(extra),
+          "n": n, "hop_nnz": [h.nnz for h in tensors["adj_hops"]],
+          "epochs": len(times),
           "epoch_ms": epoch_ms, "epoch_ms_median": epoch_ms_median,
           "first_epoch_ms": 1e3 * times[0],
           "final_train_loss": float(stats["train_loss"]),
           "final_val_acc": float(stats["val_acc"]),
           "launches": launches, "logit_err": logit_err,
-          "logit_tol": logit_tol, "s": time.perf_counter() - t0})
+          "logit_tol": logit_tol, "prep_s": prep,
+          # loading the files, the model's set-up, the final evaluation
+          "other_host_s": main_s - sum(times) - sum(prep.values()),
+          "peak_mem_bytes": peak_bytes, "s": time.perf_counter() - t0})
     return launches[kernel]
 
 
@@ -762,6 +936,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # fails in a directory without the package, before any result
+    from h2gcn_tpu_torch import native
     from h2gcn_tpu_torch.run_experiments import resolve_device
     from h2gcn_tpu_torch.sparse import _build
 
@@ -778,6 +953,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _, build_s = _build.library()
     emit({"build_s": build_s, "library": _build.library_path().name,
+          "s": time.perf_counter() - t0})
+    # the host path of the exact-hop split and the cluster order: the
+    # port's native library, not scipy's (whose RCM order differs)
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native graph library did not build or "
+                             "load: the host path would be scipy's")
+    emit({"host_path": "native", "library": native.library_path().name,
+          "openmp_threads": native.openmp_threads(),
           "s": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -818,6 +1002,22 @@ def main() -> int:
         launches.update(run_gat_cli(data_dir, "syn10k", device, 0,
                                     route="coo", attn_impl="coo"))
         emit({"phase": "gat_scale_cli", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        cases["cootile_spmm"] = check_cootile_kernels(device)
+        emit({"phase": "cootile_kernels", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        run_cli("cootile", data_dir, "syn10k", device)
+        t1 = time.perf_counter()
+        write_planetoid(data_dir, "syn250k", scale_graph())
+        emit({"phase": "planetoid_250k", "s": time.perf_counter() - t1})
+        # the slice's own path: the 250K graph, cluster-ordered, with sparse
+        # features; its launches are the ones the kernels line reports
+        launches["cootile_spmm"] = run_cli(
+            "cootile", data_dir, "syn250k", device,
+            extra=("--reorder", "cluster", "--sparse_features"))
+        emit({"phase": "cootile_cli", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -839,7 +1039,9 @@ def main() -> int:
                                "h2gcn_tpu/sparse/pallas_attention_coo.py:250"),
                "gscatter_weighted": (
                    "h2gcn_tpu_torch/csrc/gscatter_weighted.cu",
-                   "h2gcn_tpu/sparse/pallas_attention_gather.py:141")}
+                   "h2gcn_tpu/sparse/pallas_attention_gather.py:141"),
+               "cootile_spmm": ("h2gcn_tpu_torch/csrc/cootile_spmm.cu",
+                                "h2gcn_tpu/sparse/pallas_cootile.py:516")}
     kernels = []
     for name, (source, replaces) in sources.items():
         if name in scale_cases:
@@ -853,7 +1055,8 @@ def main() -> int:
             head = next(c for c in cases[name]
                         if c["graph"] == "cora_shaped" and c["H"] == 8)
         else:
-            # the headline shape: A2, F=128, highest, forward
+            # the headline shape: the 10K graph's A2, F=128, highest,
+            # forward
             head = next(c for c in cases[name]
                         if c["matrix"] == "A2" and c["F"] == 128
                         and c["precision"] == "highest"

@@ -10,6 +10,7 @@ export (:meth:`PlanetoidData.get_tensors`) that makes torch tensors and
 from __future__ import annotations
 
 import pickle as pkl
+import time
 import warnings
 from argparse import Namespace
 from itertools import chain
@@ -331,20 +332,24 @@ class PlanetoidData:
         ``get_adj_norm_hops``: hop groups like ``["1", "2"]`` or
         ``["0,1", "2"]``; each group's exact-hop matrices are summed, then
         normalized (``norm_type``), giving one f32 SparseMatrix per group in
-        ``adj_hops``. The unnormalized dense stack (``get_adj_hops``),
-        explicit ``supports``, Chebyshev supports, sparse features and the
-        tile-clustering ``reorder`` are not ported yet (ROADMAP A3).
+        ``adj_hops``. ``sparse_features`` exports X as a ``segment``
+        SparseMatrix (the dense first layer then runs X W through ``spmm``),
+        needed past the dense guard. ``reorder`` ("rcm" | "cluster")
+        permutes every exported tensor (graph, hops, features, labels,
+        masks) by a tile-clustering node order computed on the union
+        pattern of the normalized hops, exported as ``t.node_perm`` (new
+        position ``i`` holds old node ``perm[i]``). ``t.prep_seconds`` holds
+        the host seconds of the split, the reorder and the export of the
+        matrices (their payloads' table builds). The unnormalized dense
+        stack (``get_adj_hops``), explicit ``supports`` and Chebyshev
+        supports are not ported yet (ROADMAP A3).
         """
         if norm_type == NType.CHEBY:
             raise NotImplementedError(
                 "get_tensors: CHEBY supports are not ported (ROADMAP A3)")
-        if sparse_features:
-            raise NotImplementedError(
-                "get_tensors: sparse_features is not ported (ROADMAP A3)")
-        if reorder:
-            raise NotImplementedError(
-                "get_tensors: reorder is not ported (ROADMAP A3)")
         device = torch.device(device)
+        prep = {}
+        t0 = time.perf_counter()
 
         normed = None
         if get_adj_norm_hops:
@@ -359,24 +364,62 @@ class PlanetoidData:
                 splits.append(sp.csr_matrix((n, n), dtype=splits[0].dtype))
             summed = [sum(splits[i] for i in g) for g in groups]
             normed = [transforms.normalize(m, norm_type) for m in summed]
+        prep["split"] = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
+        perm = None
+        if reorder:
+            # the order is computed on what the model aggregates over
+            if normed:
+                pattern = sum((abs(sp.csr_matrix(p)) for p in normed[1:]),
+                              abs(sp.csr_matrix(normed[0])))
+            else:
+                pattern = self.sparse_adj
+            perm = transforms.cluster_order(pattern, method=reorder)
+        prep["reorder"] = time.perf_counter() - t0
+
+        def permuted(m):
+            return transforms.permute_graph(m, perm) if perm is not None else m
+
+        t0 = time.perf_counter()
         t = Namespace()
-        t.adj = SparseMatrix.from_scipy(self.sparse_adj, backend=backend,
-                                        device=device)
-        n_elems = int(self.features.shape[0]) * int(self.features.shape[1])
-        if n_elems > self._DENSE_FEATURE_GUARD:
-            raise ValueError(
-                f"densifying a {self.features.shape} feature matrix "
-                f"({n_elems:,} elements) would exhaust device memory")
-        t.features = torch.from_numpy(
-            np.asarray(self.features.todense(), dtype=np.float32)).to(device)
+        t.adj = SparseMatrix.from_scipy(
+            permuted(self.sparse_adj).astype(np.float32), backend=backend,
+            device=device)
+        if sparse_features:
+            feats = sp.csr_matrix(self.features)
+            if perm is not None:
+                feats = feats[perm]
+            t.features = SparseMatrix.from_scipy(
+                feats.astype(np.float32), backend="segment", device=device)
+        else:
+            n_elems = int(self.features.shape[0]) * int(self.features.shape[1])
+            if n_elems > self._DENSE_FEATURE_GUARD:
+                raise ValueError(
+                    f"densifying a {self.features.shape} feature matrix "
+                    f"({n_elems:,} elements) would exhaust device memory; "
+                    "pass sparse_features=True (CLI: --sparse_features) to "
+                    "keep X on the sparse SpMM path")
+            feats_np = np.asarray(self.features.todense(), dtype=np.float32)
+            if perm is not None:
+                feats_np = feats_np[perm]
+            t.features = torch.from_numpy(feats_np).to(device)
         if normed is not None:
             t.adj_hops = [
-                SparseMatrix.from_scipy(m, backend=backend, device=device)
+                SparseMatrix.from_scipy(permuted(m).astype(np.float32),
+                                        backend=backend, device=device)
                 for m in normed
             ]
+        prep["export"] = time.perf_counter() - t0
+        t.prep_seconds = prep
         for key, value in self._dense_data.items():
-            setattr(t, key, torch.from_numpy(
-                np.asarray(value, dtype=np.float32)).to(device))
-        t.labels = torch.from_numpy(np.asarray(self.labels)).to(device)
+            value = np.asarray(value, dtype=np.float32)
+            if perm is not None and value.shape[:1] == (self.num_samples,):
+                value = value[perm]
+            setattr(t, key, torch.from_numpy(value).to(device))
+        labels = np.asarray(self.labels)
+        if perm is not None:
+            labels = labels[perm]
+            t.node_perm = perm
+        t.labels = torch.from_numpy(labels).to(device)
         return t

@@ -48,14 +48,16 @@ def add_subparser_args(parser):
                        default="auto",
                        help="SpMM execution backend for the hop matrices")
     group.add_argument("--sparse_features", action="store_true",
-                       help="Keep X sparse (not ported yet)")
+                       help="Keep X sparse on the device (X W through the "
+                            "SpMM core); needed for large feature matrices")
     group.add_argument("--precompute_workers", type=int, default=1,
                        help="Row-shard the exact-hop precompute over N "
                             "workers (not ported yet: must be 1)")
     group.add_argument("--reorder", choices=["none", "rcm", "cluster"],
                        default="none",
-                       help="Tile-clustering node permutation (not ported "
-                            "yet: must be none)")
+                       help="Tile-clustering node permutation applied to "
+                            "every exported tensor (the COO-tile backend "
+                            "then visits fewer tiles on large graphs)")
     parser.function_hooks["argparse"].append(argparse_callback)
 
 

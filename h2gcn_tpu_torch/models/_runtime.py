@@ -18,10 +18,12 @@ from __future__ import annotations
 import copy
 import operator
 
+import numpy as np
 import torch
 
 from ..modules import controller, logger, monitor
 from ..nn.metrics import masked_accuracy, masked_softmax_cross_entropy
+from ..sparse import SparseMatrix
 
 
 class KerasAdam(torch.optim.Optimizer):
@@ -69,6 +71,28 @@ def get_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP A5); use adam")
     return KerasAdam(params, lr)
+
+
+def _original_order_fn(node_perm):
+    """Map per-node arrays back to the original node order.
+
+    ``--reorder`` trains in a tile-clustered node order (``get_tensors(
+    reorder=...)`` exports ``node_perm``); the returned function inverts the
+    permutation on the first axis of anything with one row per node, and
+    leaves other arrays as they are. The identity without a permutation.
+    """
+    if node_perm is None:
+        return lambda a: a
+    inv = torch.from_numpy(np.argsort(np.asarray(node_perm)))
+
+    def unperm(a):
+        if a.shape[:1] != inv.shape:
+            return a
+        if isinstance(a, torch.Tensor):
+            return a[inv.to(a.device)]
+        return np.asarray(a)[inv.numpy()]
+
+    return unperm
 
 
 def snapshot(model, optimizer) -> dict:
@@ -122,7 +146,9 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     dataset = args.objects["dataset"]
     num_hops = len(tensors.get("adj_hops", [])) or 1
     seed = seed if seed is not None else getattr(args, "random_seed", 123) or 123
-    device = tensors["features"].device
+    features = tensors["features"]
+    device = (features.vals if isinstance(features, SparseMatrix)
+              else features).device
 
     model.init(dataset.feature_dim, num_hops,
                torch.Generator().manual_seed(seed), device)
@@ -177,6 +203,10 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     args.objects["train_step"] = train_step
     args.objects["test_step"] = test_step
     args.objects["predict_step"] = predict_step
+    # maps predict_step's logits (or any per-node array) to the original
+    # node order under --reorder
+    args.objects["original_order"] = _original_order_fn(
+        tensors.get("node_perm"))
     _register_protocol(args, model, optimizer, test_step, early_stopping,
                        es_metric)
 

@@ -1,7 +1,8 @@
 """The network module compiled from the layer DSL.
 
 :class:`NetworkModel` is the port of ``h2gcn_tpu.nn.model.NetworkModel``
-for the layer kinds H2GCN-2 uses: dense (with or without bias), ReLU, graph
+for the layer kinds H2GCN-2 uses: dense (with or without bias; on sparse
+features a :class:`SparseMatrix` X, through ``spmm``), ReLU, graph
 aggregation over the hop matrices, vectorize, concat of tagged outputs, and
 dropout. Concat layers see the tagged-output table in tag creation order;
 graph layers stack one aggregate per selected hop on a new axis. Dense
@@ -101,7 +102,12 @@ class NetworkModel(nn.Module):
                     self.kernels[key] = nn.Parameter(w)
                     if conf["use_bias"]:
                         self.biases[key] = nn.Parameter(torch.zeros(fan_out))
-                x = torch.matmul(x, self.kernels[key])
+                if isinstance(x, SparseMatrix):
+                    # sparse features: X W through the SpMM core (its
+                    # gradient to W is X^T g through the transpose view)
+                    x = spmm(x, self.kernels[key])
+                else:
+                    x = torch.matmul(x, self.kernels[key])
                 if key in self.biases:
                     x = x + self.biases[key]
             elif kind == Layer.DROPOUT:

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "h2gcn_gscatter_spmm": [_P, _P, _P, _P, _P, _I, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P],
     "h2gcn_bsr_spmm": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
     "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_col": [_P] * 13 + [_I, _I, _I, _I, _F, _P],

@@ -7,6 +7,9 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
 ``dense``     the matrix as a dense tensor; ``torch.matmul``.
 ``segment``   the COO arrays alone; gather + ``index_add_``.
 ``gscatter``  chunk tables for ``csrc/gscatter.cu`` (:mod:`.gscatter`).
+``cootile``   COO-tile chunk tables for ``csrc/cootile_spmm.cu``
+              (:mod:`.cootile`): the at-scale path for large graphs, with
+              their nodes cluster-ordered (``transforms.cluster_order``).
 ``bsr``       dense B x B blocks: 128-blocks for ``csrc/bsr_spmm.cu``
               (:mod:`.bsr_spmm`), 256-blocks as the GAT attention mask of
               ``csrc/gat_attention.cu`` (:mod:`.attention`).
@@ -32,6 +35,7 @@ import torch
 from .attention_coo import build_attn_coo
 from .attention_gather import build_gatherattn
 from .bsr_spmm import bsr_spmm
+from .cootile import CooTile, build_cootile, cootile_spmm
 from .gscatter import GScatter, build_gscatter, gscatter_spmm
 
 _NNZ_BUCKET = 1024
@@ -76,8 +80,8 @@ class BSR:
 
 @dataclasses.dataclass
 class SparseMatrix:
-    """Padded-COO sparse matrix with an optional dense / BSR / gscatter
-    payload. ``rows`` is sorted ascending; padding entries use
+    """Padded-COO sparse matrix with an optional dense / BSR / gscatter /
+    COO-tile payload. ``rows`` is sorted ascending; padding entries use
     ``rows = n-1``, ``cols = m-1``, ``vals = 0``."""
 
     rows: torch.Tensor                # [nnz_pad] int32, sorted
@@ -93,6 +97,8 @@ class SparseMatrix:
     t_perm: Optional[torch.Tensor] = None
     gsc: Optional[GScatter] = None
     gsc_t: Optional[GScatter] = None
+    coot: Optional[CooTile] = None
+    coot_t: Optional[CooTile] = None  # COO-tile tables of the transpose
     backend: str = "segment"
     symmetric: bool = False
     # "highest": f32 operands; "default": bf16 operands, f32 sums
@@ -125,6 +131,8 @@ class SparseMatrix:
             bsr_t=self.bsr,
             gsc=self.gsc_t,
             gsc_t=self.gsc,
+            coot=self.coot_t,
+            coot_t=self.coot,
             shape=(self.shape[1], self.shape[0]),
             nnz=self.nnz,
             # the attention payloads are orientation-specific and their
@@ -158,10 +166,6 @@ class SparseMatrix:
         device = torch.device(device)
         if backend not in _BACKENDS:
             raise ValueError(f"unknown sparse backend {backend!r}")
-        if backend == "cootile":
-            raise NotImplementedError(
-                "backend 'cootile' is not ported yet (ROADMAP queue B: B3 "
-                "cootile_spmm)")
         if backend == "attn" and attn_impl not in ("gather", "coo"):
             raise ValueError(f"unknown attention payload {attn_impl!r}")
         pdt = torch.bfloat16 if precision == "default" else torch.float32
@@ -194,7 +198,7 @@ class SparseMatrix:
             cols[:nnz] = coo.col
             vals[:nnz] = coo.data
 
-        dense = bsr = bsr_t = gsc = gsc_t = None
+        dense = bsr = bsr_t = gsc = gsc_t = coot = coot_t = None
         if backend == "dense":
             dense = torch.from_numpy(csr.toarray()).to(device=device, dtype=pdt)
         elif backend == "bsr":
@@ -206,6 +210,12 @@ class SparseMatrix:
             gsc = build_gscatter(csr, device=device)
             if not symmetric:
                 gsc_t = build_gscatter(sp.csr_matrix(csr.T), device=device)
+        elif backend == "cootile":
+            # one table set serves both precisions: the geometry does not
+            # depend on it
+            coot = build_cootile(csr, device=device)
+            if not symmetric:
+                coot_t = build_cootile(sp.csr_matrix(csr.T), device=device)
 
         attn = None
         if backend == "attn":
@@ -227,6 +237,8 @@ class SparseMatrix:
             bsr_t=bsr_t,
             gsc=gsc,
             gsc_t=gsc_t,
+            coot=coot,
+            coot_t=coot_t,
             t_perm=t_perm,
             shape=(n, m),
             nnz=nnz,
@@ -327,6 +339,8 @@ def _spmm_impl(sm: SparseMatrix, x: torch.Tensor) -> torch.Tensor:
         return bsr_spmm(sm.bsr, x, n_out=sm.shape[0], precision=sm.precision)
     if sm.backend == "gscatter" and sm.gsc is not None:
         return gscatter_spmm(sm.gsc, x, precision=sm.precision)
+    if sm.backend == "cootile" and sm.coot is not None:
+        return cootile_spmm(sm.coot, x, precision=sm.precision)
     if sm.backend not in ("segment", "attn") and x.device.type != "cpu":
         # on the card a kernel backend launches its kernel or raises
         raise RuntimeError(

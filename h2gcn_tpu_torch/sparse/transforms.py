@@ -2,8 +2,9 @@
 ``h2gcn_tpu.sparse.transforms``.
 
 Symmetric / random-walk normalization with the inf->0 degree guard, diagonal
-add/remove, row normalization of features, and the exact-k-hop split used by
-H2GCN (A_k = 1[(A+I)^k > 0] - 1[(A+I)^(k-1) > 0]). Everything here runs once
+add/remove, row normalization of features, the exact-k-hop split used by
+H2GCN (A_k = 1[(A+I)^k > 0] - 1[(A+I)^(k-1) > 0]), and the tile-clustering
+node order (``cluster_order``, ``permute_graph``). Everything here runs once
 per dataset on the host; results become
 :class:`~h2gcn_tpu_torch.sparse.matrix.SparseMatrix` objects on the device.
 """
@@ -58,18 +59,25 @@ def remove_eye(adj: sp.spmatrix) -> sp.csr_matrix:
     return out
 
 
-def nhood_split(adj: sp.spmatrix, nhood: int) -> List[sp.spmatrix]:
+def nhood_split(adj: sp.spmatrix, nhood: int,
+                use_native: bool = True) -> List[sp.spmatrix]:
     """Exact-hop reachability split ``[I, A1, A2, ...]``.
 
     ``A_k[i,j] = 1`` iff the shortest path between i and j (allowing the
     self loop added each round) is exactly k. Stops early when the reachable
-    set stops growing. The scipy boolean spgemm of the JAX package's
-    ``nhood_split``; its native (C++) and multi-worker paths are not ported.
+    set stops growing. With the native library (:mod:`h2gcn_tpu_torch.native`)
+    the boolean spgemm runs in its OpenMP C++ path, else in scipy. The JAX
+    package's multi-worker path is not ported (ROADMAP A9).
     """
     if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
         raise ValueError(f"nhood_split needs a square matrix, got {adj.shape}")
     if isinstance(nhood, float) and np.isnan(nhood):
         return [sp.csr_matrix(np.ones(adj.shape))]
+    if use_native:
+        from .. import native
+
+        if native.available():
+            return native.nhood_split_fast(sp.csr_matrix(adj), nhood)
     n = adj.shape[0]
     a_plus_i = (adj + sp.eye(n, format="csr")).tocsr()
     mt = sp.eye(n, format="csr")
@@ -89,6 +97,41 @@ def nhood_split(adj: sp.spmatrix, nhood: int) -> List[sp.spmatrix]:
         diff.eliminate_zeros()
         out.append(diff)
     return out
+
+
+def cluster_order(pattern: sp.spmatrix, method: str = "cluster",
+                  hub_quantile: float = 0.99) -> np.ndarray:
+    """Node permutation that packs edges into few tiles.
+
+    ``"rcm"``: reverse Cuthill-McKee. ``"cluster"``: the nodes of degree at
+    or above the ``hub_quantile`` quantile (the power-law hubs that touch
+    almost every tile) first, by descending degree, then the residual graph
+    in RCM order. Returns ``perm`` (int32[n]): new position ``i`` holds old
+    node ``perm[i]``; apply with ``A[perm][:, perm]`` and ``x[perm]``.
+    """
+    from .. import native
+
+    csr = sp.csr_matrix(pattern)
+    if method == "rcm":
+        return native.rcm_order(csr)
+    if method != "cluster":
+        raise ValueError(f"unknown reorder method {method!r}")
+    deg = np.diff(csr.indptr)
+    thresh = np.quantile(deg, hub_quantile)
+    hubs = np.where(deg >= max(thresh, 1))[0]
+    rest = np.where(deg < max(thresh, 1))[0]
+    if hubs.size == 0 or rest.size == 0:
+        return native.rcm_order(csr)
+    sub = csr[rest][:, rest].tocsr()
+    return np.concatenate([
+        hubs[np.argsort(-deg[hubs], kind="stable")].astype(np.int32),
+        rest[native.rcm_order(sub)].astype(np.int32),
+    ])
+
+
+def permute_graph(mat: sp.spmatrix, perm: np.ndarray) -> sp.csr_matrix:
+    """Symmetric permutation ``P A P^T`` of a square sparse matrix."""
+    return sp.csr_matrix(mat)[perm][:, perm].tocsr()
 
 
 def row_normalize(features: sp.spmatrix):

@@ -239,9 +239,10 @@ def test_cli_trains_gat_fused_on_cpu(planetoid, tmp_path, capsys):
 
 
 def test_cli_refuses_an_unported_payload(planetoid, tmp_path):
-    # every GAT payload is ported; the SpMM ladder's cootile is not (B3)
-    with pytest.raises(NotImplementedError, match="B3"):
+    # every GAT and SpMM payload is ported (cootile, B3, last); the CLI
+    # still refuses the Chebyshev supports, which are not (ROADMAP A3)
+    with pytest.raises(NotImplementedError, match="CHEBY"):
         run_experiments.main([
             "H2GCN", "planetoid", "--dataset", "ind.syn", "--dataset_path",
-            planetoid, "--device", "cpu", "--sparse_backend", "cootile",
+            planetoid, "--device", "cpu", "--adj_norm_type", "CHEBY",
             "--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck")])

@@ -12,7 +12,8 @@ weighted gather-scatter combine of the gather attention, whose weights come
 from the softmax. The COO-chunk kernels in "default" precision round their
 contraction operands to bf16 at the running row max where the plain
 version rounds at the final one, so they are held at 3e-2 of the output's
-scale, the JAX package's bound for its bf16 mode."""
+scale, the JAX package's bound for its bf16 mode. The COO-tile SpMM rounds
+where its plain version rounds in both precisions and is held at 1e-5."""
 
 import dataclasses
 
@@ -27,6 +28,7 @@ from h2gcn_tpu_torch.sparse import attention as tatt
 from h2gcn_tpu_torch.sparse import attention_coo as tcoo
 from h2gcn_tpu_torch.sparse import attention_gather as tgat_
 from h2gcn_tpu_torch.sparse import bsr_spmm as tbsr
+from h2gcn_tpu_torch.sparse import cootile as tct
 from h2gcn_tpu_torch.sparse import gscatter as tgs
 
 TOL = 1e-5
@@ -456,3 +458,71 @@ def test_gat_model_at_scale_payloads_match_segment_on_the_card(cuda, impl):
     model.fused_attention = False
     seg = model(adj, x, [], training=False)
     _close(fused.detach(), seg.detach(), GAT_TOL)
+
+
+# (n, m, nnz, F, tile, e_b, rows): a hub tile row whose chunks span many
+# thread blocks; F = 7, 64 and 128; an empty band of tile rows; n and m not
+# multiples of the tile; a hyper-sparse matrix with e_b chosen from it
+COOTILE_CASES = [
+    ("hub", 2000, 2000, 200_000, 64, 256, 128, (0, 256)),
+    ("f7", 3000, 3000, 40_000, 7, 512, 128, None),
+    ("f128", 3000, 3000, 40_000, 128, 512, 256, None),
+    ("empty_band", 2600, 2600, 30_000, 64, 256, 64, (0, 700)),
+    ("ragged", 1300, 900, 20_000, 45, 512, 128, None),
+    ("sparse_auto_eb", 5000, 5000, 6_000, 64, 512, None, None),
+]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", COOTILE_CASES, ids=lambda c: c[0])
+def test_cootile_kernel_matches_plain(cuda, case, precision):
+    _, n, m, nnz, f, tile, e_b, rows = case
+    a = _rand(n, m, nnz, 11, rows=rows)
+    ct = tct.build_cootile(a, tile=tile, e_b=e_b, device=cuda)
+    if case[0] == "hub":
+        per_block = tct._chunks_per_block(ct, f, cuda)
+        assert ct.heaviest_row_chunks() > 8 * per_block
+    x = torch.randn(m, f, device=cuda)
+    before = tct.cootile_spmm.launches
+    got = tct.cootile_spmm(ct, x, precision=precision)
+    torch.cuda.synchronize()
+    assert tct.cootile_spmm.launches == before + 1
+    _close(got, tct.cootile_spmm_plain(ct, x, precision=precision))
+    # the plain version is the matrix's own product (f32 in "highest")
+    if precision == "highest":
+        dense = torch.from_numpy(a.toarray()).to(cuda)
+        _close(got, dense @ x)
+
+
+def test_cootile_spmm_backward_reads_transpose_payload(cuda):
+    a = _rand(900, 1300, 12000, 5)  # not square
+    sm = SparseMatrix.from_scipy(a, backend="cootile", device=cuda)
+    assert sm.coot_t is not None
+    ref = SparseMatrix.from_scipy(a, backend="segment", device=cuda)
+    x = torch.randn(1300, 64, device=cuda, requires_grad=True)
+    xr = x.detach().clone().requires_grad_(True)
+    g = torch.randn(900, 64, device=cuda)
+    y = spmm(sm, x)
+    before = tct.cootile_spmm.launches
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert tct.cootile_spmm.launches == before + 1
+    spmm(ref, xr).backward(g)
+    _close(y.detach(), spmm(ref, xr.detach()))
+    _close(x.grad, xr.grad)
+    no_t = dataclasses.replace(sm, coot_t=None)
+    with pytest.raises(RuntimeError, match="no payload"):
+        spmm(no_t, x).backward(g)
+
+
+def test_cootile_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    a = _rand(500, 500, 3000, 6)
+    ct = tct.build_cootile(a, tile=2048, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        tct.cootile_spmm(ct, torch.randn(500, 8, device=cuda))
+    ct = tct.build_cootile(a, tile=256, device=cuda)
+    with pytest.raises(ValueError, match="does not match"):
+        tct.cootile_spmm(ct, torch.randn(400, 8, device=cuda))
+    ct_cpu = tct.build_cootile(a, tile=256)
+    with pytest.raises(ValueError, match="tables"):
+        tct.cootile_spmm(ct_cpu, torch.randn(500, 8, device=cuda))

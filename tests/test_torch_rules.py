@@ -27,7 +27,7 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for mod in ("sparse.gscatter", "sparse.bsr_spmm", "sparse.attention",
                 "sparse.attention_coo", "sparse.attention_gather",
-                "sparse.cootile", "models.GAT"):
+                "sparse.cootile", "models.GAT", "native"):
         assert f"h2gcn_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

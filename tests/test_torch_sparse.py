@@ -73,8 +73,14 @@ def test_coo_arrays_and_transpose_view_match_jax():
 def test_backend_rules():
     a = _matrix("symmetric")
     assert TSM.from_scipy(a).backend == "segment"  # auto on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSM.from_scipy(a, backend="cootile")
+    # cootile builds its tables on any device; on the CPU its SpMM is the
+    # plain version over them
+    tc = TSM.from_scipy(a, backend="cootile")
+    assert tc.backend == "cootile" and tc.coot is not None
+    x = np.random.default_rng(1).standard_normal(
+        (a.shape[1], 4)).astype(np.float32)
+    np.testing.assert_allclose(tspmm(tc, torch.from_numpy(x)).numpy(),
+                               a @ x, rtol=1e-5, atol=1e-5)
     # "attn" keeps the COO arrays and an attention payload; its SpMM runs
     # on the COO arrays, as "segment"
     for impl, kind in (("coo", "AttnCoo"), ("gather", "GatherAttn")):
