@@ -15,8 +15,12 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    bench.py (exact-hop split, symmetric normalization: A1 and A2) at the
    widths H2GCN-2 aggregates (64 and 128), plus the random-walk normalized
    A1, whose transpose payload the backward reads. Each case prints its
-   error, its tolerance and the kernel's, plain version's and
-   ``torch.sparse.mm``'s times beside the card's lower bound;
+   error, its tolerance, the kernel's, plain version's and
+   ``torch.sparse.mm``'s times beside the card's lower bound (for BSR also
+   the bound of its dense blocks), and the work items the kernel launched
+   with the table slots (gscatter) or blocks (BSR) per item; then the
+   gscatter geometry sweep at A2, F = 128 (stripe tile x features a thread
+   block);
 4. trains H2GCN-2 for 5 epochs through the CLI
    (``h2gcn_tpu_torch.run_experiments.main``) on the same graph written as
    planetoid files, once with ``--sparse_backend gscatter`` and once with
@@ -294,7 +298,35 @@ def check_kernels(device):
                         case["s"] = time.perf_counter() - t0
                         emit(case)
                         results[kernel].append(case)
+        if mname == "A2":
+            gscatter_sweep(mat, device, gen)
     return results
+
+
+# B1's geometry sweep: stripe tile -> the features a thread block takes
+SWEEP_GSCATTER = {128: (64, 128), 256: (64, 128), 512: (32, 64)}
+
+
+def gscatter_sweep(mat, device, gen):
+    """The gscatter kernel at the 10K A2, F = 128, "highest", over the
+    stripe tile and the features one thread block takes (tile x width f32
+    of shared memory): the sweep that set the card's geometry."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse.gscatter import build_gscatter, gscatter_spmm
+
+    x = torch.randn(mat.shape[1], 128, generator=gen, device=device)
+    for tile, widths in SWEEP_GSCATTER.items():
+        t0 = time.perf_counter()
+        gs = build_gscatter(mat, tile=tile, device=device)
+        build_s = time.perf_counter() - t0
+        for width in widths:
+            emit(dict(_gscatter_shape(gs, 128, device, width),
+                      gscatter_sweep="A2", F=128, precision="highest",
+                      kernel_ms=time_ms(lambda: gscatter_spmm(
+                          gs, x, width=width), 20),
+                      build_s=build_s, s=time.perf_counter() - t0))
+        del gs
 
 
 def _times(kernel, sm, x, run, plain, lib_a, precision):
@@ -310,11 +342,7 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
     bound_ms, bound_by = _bound(sm.nnz * 12 + m * F * xbytes + n * F * 4,
                                 2 * sm.nnz * F, dtype)
     if kernel == "gscatter_spmm":
-        # the heaviest 512-row stripe: one thread block per feature tile
-        # walks all of its edges
-        csr = sm.to_scipy()
-        shape_info = {"max_stripe_nnz": int(np.add.reduceat(
-            np.diff(csr.indptr), np.arange(0, n, sm.gsc.tile)).max())}
+        shape_info = _gscatter_shape(sm.gsc, F, x.device)
     elif kernel == "cootile_spmm":
         shape_info = _cootile_shape(sm.coot, sm.nnz)
     else:
@@ -325,13 +353,43 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
             b.num_blocks * (b.block_size ** 2 * b.blocks.element_size() + 4)
             + m * F * xbytes + n * F * 4,
             2 * b.num_blocks * b.block_size ** 2 * F, dtype)
-        shape_info = {"blocks": b.num_blocks,
-                      "dense_block_ms": dense_block_ms}
+        shape_info = dict(_bsr_shape(b, F, x.device),
+                          dense_block_ms=dense_block_ms)
     return dict(shape_info,
                 kernel_ms=time_ms(run, 20),
                 plain_ms=time_ms(lambda: plain(sm, x), 5),
                 library_ms=time_ms(lambda: torch.sparse.mm(lib_a, x), 20),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _gscatter_shape(gs, F, device, width=None):
+    """What sets a gscatter SpMM's work beside its edges: the heaviest
+    stripe, and the work items the kernel launches (each walks at most a
+    budget of table slots; a heavy stripe is spread over several)."""
+    from h2gcn_tpu_torch.sparse.gscatter import work_items
+
+    w, launches = work_items(gs, F, device, width)
+    slots = np.concatenate([np.diff(ptr.cpu().numpy()) * lv.e_b
+                            for lv, _, ptr, _ in launches])
+    stripe_slots = np.concatenate([np.diff(seg.chunk_ptr.cpu().numpy())
+                                   * lv.e_b for lv, seg, _, _ in launches])
+    return {"tile": gs.tile, "width": w, "launches": len(launches),
+            "work_items": int(slots.size),
+            "max_slots_per_item": int(slots.max()),
+            "mean_slots_per_item": float(slots.mean()),
+            "max_stripe_slots": int(stripe_slots.max())}
+
+
+def _bsr_shape(b, F, device):
+    """The BSR kernel's work items: at most a budget of blocks of one
+    block row each."""
+    from h2gcn_tpu_torch.sparse.bsr_spmm import work_items
+
+    per_item = np.diff(work_items(b, F, device).cpu().numpy()[:, 1:],
+                       axis=1).ravel()
+    return {"blocks": b.num_blocks, "work_items": int(per_item.size),
+            "max_blocks_per_item": int(per_item.max()),
+            "max_row_blocks": int((b.row_ptr[1:] - b.row_ptr[:-1]).max())}
 
 
 def _cootile_shape(ct, nnz):

@@ -32,9 +32,9 @@ _L = ctypes.c_longlong
 # name -> argument types; every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
-    "h2gcn_gscatter_spmm": [_P, _P, _P, _P, _P, _I, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
-    "h2gcn_bsr_spmm": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "h2gcn_gscatter_spmm": [_P, _P, _I] + [_P] * 5 + [_I, _P]
+                           + [_I] * 6 + [_P],
+    "h2gcn_bsr_spmm": [_P, _I] + [_P] * 3 + [_I, _P, _I, _I, _I, _P],
     "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
     "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],

@@ -79,7 +79,12 @@ def _alpha(mask, pre, m, l, slope):
 
 def gat_fwd_stats_plain(bsr, f1p, f2p, hp, *, num_heads: int, feat: int,
                         slope: float = 0.2):
-    """-> ``(out [n_pad, H*F], m [n_pad, H], l [n_pad, H])``."""
+    """-> ``(out [n_pad, H*F], m [n_pad, H], l [n_pad, H])``.
+
+    The sums ``l`` and ``p @ h`` run in float64 and are rounded to float32
+    once: a float32 ``einsum`` sums in an order that depends on the CPU
+    threads free at the time, and moved its result by up to 3e-5 between
+    calls on a loaded machine."""
     B, n_pad = _geometry(bsr)
     H, F = num_heads, feat
     f1b = f1p.reshape(-1, B, H)
@@ -98,11 +103,12 @@ def gat_fwd_stats_plain(bsr, f1p, f2p, hp, *, num_heads: int, feat: int,
         e = _leaky(f1b[br][None, :, None, :] + f2b[cols][:, None], slope)
         e = torch.where(mask, e, NEG_INF)                     # [k, i, j, H]
         mi = torch.amax(e, dim=(0, 2))                        # [i, H]
-        p = torch.where(mask, torch.exp(e - mi[None, :, None, :]), 0.0)
+        p = torch.where(mask, torch.exp(e - mi[None, :, None, :]),
+                        0.0).double()
         li = p.sum(dim=(0, 2))
-        acc = torch.einsum("kijh,kjhf->ihf", p, hb[cols])
+        acc = torch.einsum("kijh,kjhf->ihf", p, hb[cols].double())
         out[br] = acc / torch.clamp(li, min=1e-16)[..., None]
-        m[br], l[br] = mi, li
+        m[br], l[br] = mi, li.float()
     return out.reshape(n_pad, H * F), m.reshape(n_pad, H), l.reshape(n_pad, H)
 
 

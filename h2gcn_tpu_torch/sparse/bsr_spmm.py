@@ -6,16 +6,58 @@ blocks sorted by (block row, block column), with a zero filler block in
 every otherwise empty block row. :func:`bsr_spmm` launches
 ``csrc/bsr_spmm.cu`` (replacing ``h2gcn_tpu/sparse/pallas_spmm.py``'s
 kernel) on a CUDA tensor and takes :func:`bsr_spmm_plain` only for a CPU
-tensor.
+tensor. The kernel's thread blocks take work items that :func:`build_items`
+cuts from the payload's ``row_ptr``, kept beside the payload.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
 _KERNEL_BLOCK = 128  # the block size csrc/bsr_spmm.cu is written for
+# blocks one work item multiplies at most
+BLOCKS_PER_ITEM = 8
+# ...but a small payload gets smaller items, so that the grid still holds
+# this many thread blocks per SM
+_MIN_BLOCKS_PER_SM = 4
+
+
+def build_items(row_ptr, budget: int) -> np.ndarray:
+    """The kernel's work items (numpy only): each block row's blocks cut
+    into ``ceil(n / budget)`` near-equal runs. Returns int32 ``[n_items,
+    3]`` rows ``(block row, first block, end block)``, in block-row order;
+    they cover every block once, and every block row (each holds at least
+    its filler block) gets at least one item."""
+    ptr = np.asarray(row_ptr, np.int64)
+    budget = max(1, int(budget))
+    counts = np.diff(ptr)
+    parts = np.maximum(-(-counts // budget), 1)
+    br = np.repeat(np.arange(len(counts)), parts)
+    k = np.arange(int(parts.sum())) - np.repeat(np.cumsum(parts) - parts,
+                                                parts)
+    lo = ptr[br] + (k * counts[br]) // parts[br]
+    hi = ptr[br] + ((k + 1) * counts[br]) // parts[br]
+    return np.stack([br, lo, hi], axis=1).astype(np.int32)
+
+
+def work_items(bsr, f: int, device):
+    """The work items the kernel launches for x of ``f`` features on
+    ``device`` (:func:`build_items` on the device): at most
+    :data:`BLOCKS_PER_ITEM` blocks each, fewer where that would leave under
+    :data:`_MIN_BLOCKS_PER_SM` thread blocks per SM (one block per item and
+    feature tile of 64, or of 128 past 64 features). Built once for each
+    budget and kept beside the payload."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_ftiles = -(-f // (64 if f <= 64 else 128))
+    items = -(-_MIN_BLOCKS_PER_SM * sms // n_ftiles)
+    budget = max(1, min(BLOCKS_PER_ITEM, -(-bsr.num_blocks // items)))
+    if budget not in bsr.schedules:
+        bsr.schedules[budget] = torch.from_numpy(build_items(
+            bsr.row_ptr.cpu().numpy(), budget)).to(bsr.row_ptr.device)
+    return bsr.schedules[budget]
 
 
 def _operands(bsr, x: torch.Tensor, precision: str):
@@ -53,7 +95,7 @@ def bsr_spmm(bsr, x: torch.Tensor, *, n_out: int,
     """``A @ x`` for a BSR ``A``: ``x`` [m, F] -> [n_out, F] float32.
 
     A CPU tensor takes :func:`bsr_spmm_plain`; a CUDA tensor launches the
-    kernel or raises.
+    kernel (once) or raises.
     """
     if x.device.type == "cpu":
         return bsr_spmm_plain(bsr, x, n_out=n_out, precision=precision)
@@ -75,15 +117,18 @@ def bsr_spmm(bsr, x: torch.Tensor, *, n_out: int,
         if t.device != xk.device or not t.is_contiguous():
             raise ValueError(f"bsr_spmm: tables must be contiguous and on "
                              f"{xk.device}")
+    if blocks.data_ptr() % 16:
+        raise ValueError("bsr_spmm: the payload must be 16-byte aligned")
     m, f = xk.shape
-    out = torch.empty(n_out, f, dtype=torch.float32, device=xk.device)
+    out = torch.zeros(n_out, f, dtype=torch.float32, device=xk.device)
     if f == 0 or n_out == 0:
-        return out.zero_()
+        return out
+    items = work_items(bsr, f, xk.device)
     lib, _ = _build.library()
     err = lib.h2gcn_bsr_spmm(
-        bsr.row_ptr.data_ptr(), bsr.block_cols.data_ptr(), blocks.data_ptr(),
-        xk.data_ptr(), int(blocks.dtype == torch.bfloat16), out.data_ptr(),
-        bsr.n_row_blocks, m, f, n_out,
+        items.data_ptr(), int(items.shape[0]), bsr.block_cols.data_ptr(),
+        blocks.data_ptr(), xk.data_ptr(),
+        int(blocks.dtype == torch.bfloat16), out.data_ptr(), m, f, n_out,
         torch.cuda.current_stream(xk.device).cuda_stream)
     _build.check(lib, err, "bsr_spmm")
     bsr_spmm.launches += 1

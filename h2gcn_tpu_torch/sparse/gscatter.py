@@ -11,7 +11,9 @@ and a stripe with more than ``max_steps`` steps (a mega-hub) spills into
 overflow levels whose outputs are summed.
 
 :func:`gscatter_spmm` launches ``csrc/gscatter.cu`` on a CUDA tensor and
-takes :func:`gscatter_spmm_plain` only for a CPU tensor.
+takes :func:`gscatter_spmm_plain` only for a CPU tensor. The kernel's thread
+blocks walk work items that :func:`build_schedule` cuts from a segment's
+``chunk_ptr``, beside the tables (which stay those of the JAX package).
 """
 
 from __future__ import annotations
@@ -27,7 +29,22 @@ from . import _build
 
 _KB = 8          # chunks per step (a TPU grid step; kept for table parity)
 _MAX_STEPS = 2048  # steps per segment
-_MAX_TILE = 1024  # the kernel's shared stripe is tile x 32 f32 (<= 227 KB)
+# the kernel's shared stripe is tile x width f32, width the features of one
+# thread block (32, 64 or 128): at most the 227 KB a block can have
+_MAX_SHARED = 232448
+_MAX_TILE = 1024
+# the widest feature tile the kernel takes where the stripe still fits, and
+# the stripe tile of the SpMM payload (SparseMatrix.from_scipy): the fastest
+# at the 10K-node A2 on the H100 (PERF.md, section 6); the table builders
+# keep the JAX package's default tile
+FEAT_WIDTH = 128
+SPMM_TILE = 128
+# table slots one work item walks at most (chunks = this // e_b): its flush
+# of up to tile x width outputs stays small beside its edges' gathers
+_SLOTS_PER_ITEM = 16384
+# ...but a small segment gets smaller items, so that the grid still holds
+# this many thread blocks per SM
+_MIN_BLOCKS_PER_SM = 4
 
 
 @dataclasses.dataclass
@@ -43,6 +60,10 @@ class GScatterSegment:
     # padding (callers that scatter per-edge values into the slot space)
     slot_lo: int = 0
     slot_hi: int = 0
+    # the kernel's work items by chunk budget (build_schedule), on the
+    # tables' device; filled at the first launch
+    schedules: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
 
 @dataclasses.dataclass
@@ -209,9 +230,87 @@ def _operand(x: torch.Tensor, precision: str) -> torch.Tensor:
     return xk if precision == "highest" else xk.to(torch.bfloat16)
 
 
+def build_schedule(chunk_ptr, budget: int):
+    """The kernel's work items over one segment's chunks (numpy only).
+
+    Whole stripes are packed into one item while its chunks stay within
+    ``budget``; a stripe of more chunks is cut into ``ceil(n / budget)``
+    near-equal items of its own. Returns ``(item_ptr, item_stripe)``, both
+    int32: item ``i`` walks chunks ``item_ptr[i]:item_ptr[i + 1]``, the
+    first of them in stripe ``item_stripe[i]``. The items cover every chunk
+    once, in order, so every stripe (each holds at least one chunk) is
+    reached.
+    """
+    ptr = np.asarray(chunk_ptr, np.int64)
+    budget = max(1, int(budget))
+    starts, stripes = [], []
+    open_lo = None  # first chunk of the item that packs small stripes
+    for s in range(len(ptr) - 1):
+        lo, hi = int(ptr[s]), int(ptr[s + 1])
+        if open_lo is not None and hi - open_lo > budget:
+            open_lo = None
+        if hi - lo > budget:
+            k = -(-(hi - lo) // budget)
+            starts.extend(lo + (np.arange(k) * (hi - lo)) // k)
+            stripes.extend([s] * k)
+        elif open_lo is None:
+            open_lo = lo
+            starts.append(lo)
+            stripes.append(s)
+    item_ptr = np.append(np.asarray(starts, np.int64), ptr[-1])
+    return item_ptr.astype(np.int32), np.asarray(stripes, np.int32)
+
+
+def _chunk_budget(gs: GScatter, seg: GScatterSegment, n_ftiles: int,
+                  device) -> int:
+    """Chunks one work item walks: :data:`_SLOTS_PER_ITEM` worth, or fewer
+    where that would leave under :data:`_MIN_BLOCKS_PER_SM` thread blocks
+    per SM (one block per item and feature tile)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    items = -(-_MIN_BLOCKS_PER_SM * sms // n_ftiles)
+    per_item = max(1, _SLOTS_PER_ITEM // gs.e_b)
+    return max(1, min(per_item, -(-int(seg.rows.shape[0]) // items)))
+
+
+def work_items(gs: GScatter, f: int, device, width: Optional[int] = None):
+    """What the kernel launches for x of ``f`` features on ``device``:
+    ``(width, launches)``, ``width`` the features of one thread block and
+    ``launches`` one ``(level, segment, item_ptr, item_stripe)`` per
+    segment of every level. Each segment's items are built once and kept
+    beside its tables."""
+    w = feat_width(gs.tile, f, FEAT_WIDTH if width is None else width)
+    n_ftiles = -(-f // w)
+    launches = []
+    for level in (gs,) + gs.overflow:
+        for seg in level.segments:
+            budget = _chunk_budget(level, seg, n_ftiles, device)
+            if budget not in seg.schedules:
+                item_ptr, item_stripe = build_schedule(
+                    seg.chunk_ptr.cpu().numpy(), budget)
+                dev = seg.chunk_ptr.device
+                seg.schedules[budget] = (torch.from_numpy(item_ptr).to(dev),
+                                         torch.from_numpy(item_stripe).to(dev))
+            launches.append((level, seg) + seg.schedules[budget])
+    return w, launches
+
+
+def feat_width(tile: int, f: int, widest: int = FEAT_WIDTH) -> int:
+    """The features one thread block takes: the least of 32, 64 and 128
+    that covers ``f``, at most ``widest``, and narrower where ``tile``
+    rows of it would not fit in shared memory."""
+    w = 32
+    while w < min(f, widest):
+        w *= 2
+    while w > 32 and tile * w * 4 > _MAX_SHARED:
+        w //= 2
+    return w
+
+
 def gscatter_spmm_plain(gs: GScatter, x: torch.Tensor, *,
                         precision: str = "highest") -> torch.Tensor:
     """The plain PyTorch version: ``index_add_`` over the same tables.
+    "default" reads x in bf16 and rounds each weighted product to bf16
+    before the f32 sum, where the JAX kernel rounds it.
 
     Runs on any device; the reference the kernel is held against.
     """
@@ -223,6 +322,8 @@ def gscatter_spmm_plain(gs: GScatter, x: torch.Tensor, *,
         stripe = seg.ctr.to(torch.int64).repeat_interleave(gs.kb) + seg.rb_lo
         dest = (stripe[:, None] * gs.tile + seg.rows).reshape(-1)
         contrib = xk[seg.cols.to(torch.int64)] * seg.vals.reshape(-1, 1)
+        if precision == "default":
+            contrib = contrib.to(torch.bfloat16).to(torch.float32)
         out.index_add_(0, dest, contrib)
     out = out[:gs.n_rows]
     for ov in gs.overflow:
@@ -231,11 +332,14 @@ def gscatter_spmm_plain(gs: GScatter, x: torch.Tensor, *,
 
 
 def gscatter_spmm(gs: GScatter, x: torch.Tensor, *,
-                  precision: str = "highest") -> torch.Tensor:
+                  precision: str = "highest",
+                  width: Optional[int] = None) -> torch.Tensor:
     """``A @ x`` for a :class:`GScatter`: ``x`` [m, F] -> [n, F] float32.
 
     A CPU tensor takes :func:`gscatter_spmm_plain`; a CUDA tensor launches
-    the kernel (one launch per segment and overflow level) or raises.
+    the kernel (one launch per segment and overflow level, into one zeroed
+    output) or raises. ``width`` caps the features of one thread block
+    (default :data:`FEAT_WIDTH`).
     """
     if x.device.type == "cpu":
         return gscatter_spmm_plain(gs, x, precision=precision)
@@ -249,31 +353,28 @@ def gscatter_spmm(gs: GScatter, x: torch.Tensor, *,
                          "not fit the kernel's shared stripe")
     xk = _operand(x, precision).contiguous()
     f = xk.shape[1]
-    out = torch.empty(gs.n_rows, f, dtype=torch.float32, device=xk.device)
+    out = torch.zeros(gs.n_rows, f, dtype=torch.float32, device=xk.device)
     if f == 0 or gs.n_rows == 0:
-        return out.zero_()
+        return out
+    w, launches = work_items(gs, f, xk.device, width)
     lib, _ = _build.library()
     stream = torch.cuda.current_stream(xk.device).cuda_stream
-    _launch_level(lib, gs, xk, out, False, stream)
-    for ov in gs.overflow:
-        _launch_level(lib, ov, xk, out, True, stream)
+    for level, seg, item_ptr, item_stripe in launches:
+        for t, dt in ((seg.chunk_ptr, torch.int32), (seg.rows, torch.int32),
+                      (seg.cols, torch.int32), (seg.vals, torch.float32)):
+            if t.device != xk.device or not t.is_contiguous() or t.dtype != dt:
+                raise ValueError("gscatter_spmm: tables must be contiguous, "
+                                 f"of build_gscatter's types and on "
+                                 f"{xk.device}")
+        err = lib.h2gcn_gscatter_spmm(
+            item_ptr.data_ptr(), item_stripe.data_ptr(),
+            int(item_stripe.shape[0]), seg.chunk_ptr.data_ptr(),
+            seg.rows.data_ptr(), seg.cols.data_ptr(), seg.vals.data_ptr(),
+            xk.data_ptr(), int(xk.dtype == torch.bfloat16), out.data_ptr(),
+            seg.rb_lo, level.tile, level.e_b, level.n_rows, f, w, stream)
+        _build.check(lib, err, "gscatter_spmm")
+        gscatter_spmm.launches += 1
     return out
 
 
 gscatter_spmm.launches = 0  # kernel launches; chip_smoke.py reads it
-
-
-def _launch_level(lib, gs, xk, out, accumulate, stream):
-    for seg in gs.segments:
-        for t in (seg.chunk_ptr, seg.rows, seg.cols, seg.vals):
-            if t.device != xk.device or not t.is_contiguous():
-                raise ValueError("gscatter_spmm: tables must be contiguous "
-                                 f"and on {xk.device}")
-        err = lib.h2gcn_gscatter_spmm(
-            seg.chunk_ptr.data_ptr(), seg.rows.data_ptr(),
-            seg.cols.data_ptr(), seg.vals.data_ptr(), xk.data_ptr(),
-            int(xk.dtype == torch.bfloat16), out.data_ptr(),
-            seg.rb_hi - seg.rb_lo, seg.rb_lo, gs.tile, gs.e_b, gs.n_rows,
-            xk.shape[1], int(accumulate), stream)
-        _build.check(lib, err, "gscatter_spmm")
-        gscatter_spmm.launches += 1

@@ -36,7 +36,7 @@ from .attention_coo import build_attn_coo
 from .attention_gather import build_gatherattn
 from .bsr_spmm import bsr_spmm
 from .cootile import CooTile, build_cootile, cootile_spmm
-from .gscatter import GScatter, build_gscatter, gscatter_spmm
+from .gscatter import SPMM_TILE, GScatter, build_gscatter, gscatter_spmm
 
 _NNZ_BUCKET = 1024
 _DEFAULT_BLOCK = 128
@@ -72,6 +72,10 @@ class BSR:
     block_size: int = _DEFAULT_BLOCK
     n_row_blocks: int = 1
     n_col_blocks: int = 1
+    # bsr_spmm's work items by block budget (bsr_spmm.build_items), on the
+    # payload's device; filled at the first launch
+    schedules: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
     def num_blocks(self) -> int:
@@ -207,9 +211,10 @@ class SparseMatrix:
                 bsr_t = _build_bsr(sp.csr_matrix(csr.T), block_size, pdt,
                                    device)
         elif backend == "gscatter":
-            gsc = build_gscatter(csr, device=device)
+            gsc = build_gscatter(csr, tile=SPMM_TILE, device=device)
             if not symmetric:
-                gsc_t = build_gscatter(sp.csr_matrix(csr.T), device=device)
+                gsc_t = build_gscatter(sp.csr_matrix(csr.T), tile=SPMM_TILE,
+                                       device=device)
         elif backend == "cootile":
             # one table set serves both precisions: the geometry does not
             # depend on it

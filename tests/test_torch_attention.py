@@ -182,3 +182,26 @@ def test_kernel_contract_refuses_a_bf16_mask_and_bad_shapes():
     tb = t_build_bsr(a, 128)
     with pytest.raises(ValueError, match="f1 must be float32"):
         tatt._check("gat_fwd_stats", tb, 3, 8, f1=torch.zeros(200, 3))
+
+
+@pytest.mark.parametrize("case", ["b128_h3_f8", "b256_h8_f8"])
+def test_plain_forward_is_deterministic_across_threads(case):
+    """The plain forward sums in float64 and rounds once, so its result does
+    not depend on how many CPU threads its einsum takes."""
+    a, B, n, H, F, (f1, f2, h, _) = _inputs(case)
+    tb = t_build_bsr(a, B)
+    n_pad = tb.n_row_blocks * B
+    xs = [tatt.pad_rows(torch.from_numpy(x), n_pad) for x in (f1, f2, h)]
+    threads = torch.get_num_threads()
+    outs = []
+    try:
+        for k in (1, 4):
+            torch.set_num_threads(k)
+            outs.append(tatt.gat_fwd_stats_plain(tb, *xs, num_heads=H,
+                                                 feat=F))
+    finally:
+        torch.set_num_threads(threads)
+    for one, four in zip(*outs):
+        live = one > tatt.NEG_INF / 2
+        scale = float(one[live].abs().max())
+        assert float((one - four).abs().max()) <= 1e-7 * scale

@@ -92,3 +92,33 @@ def test_wrapper_checks_and_cpu_dispatch():
         tbsr.bsr_spmm(bsr, x.to("meta"), n_out=300)
     with pytest.raises(ValueError, match="unknown precision"):
         tbsr.bsr_spmm(bsr, x, n_out=300, precision="fast")
+
+
+@pytest.mark.parametrize("budget", [1, 3, 8, 40])
+def test_items_cover_every_block_once(budget):
+    # a block row of 45 blocks beside rows that hold only their filler
+    a = sp.random(600, 5800, density=0.002, random_state=3, format="lil",
+                  dtype=np.float32)
+    a[:32, :] = sp.random(32, 5800, density=0.3, random_state=4)
+    a[256:512, :] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    bsr = t_build_bsr(a, 128)
+    rp = bsr.row_ptr.numpy()
+    assert np.diff(rp).max() >= 40
+    items = tbsr.build_items(rp, budget)
+    br, lo, hi = items.T
+    # in order, every block once, none over its budget, none out of its row
+    assert lo[0] == 0 and hi[-1] == rp[-1]
+    np.testing.assert_array_equal(lo[1:], hi[:-1])
+    assert ((hi - lo) <= budget).all() and ((hi - lo) >= 1).all()
+    assert (lo >= rp[br]).all() and (hi <= rp[br + 1]).all()
+    # every block row, the filler-only ones included, gets an item
+    np.testing.assert_array_equal(np.unique(br), np.arange(bsr.n_row_blocks))
+    fill = np.flatnonzero(np.diff(rp) == 1)
+    assert {2, 3} <= set(fill)
+    # a row's items are near-equal runs
+    for r in range(bsr.n_row_blocks):
+        sizes = (hi - lo)[br == r]
+        assert len(sizes) == -(-(rp[r + 1] - rp[r]) // budget)
+        assert sizes.max() - sizes.min() <= 1

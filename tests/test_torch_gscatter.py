@@ -3,9 +3,11 @@
 The port's build_gscatter_coo must produce the JAX package's tables value
 for value (segments, overflow levels, slots). gscatter_spmm_plain is held
 against the JAX Pallas kernel run in interpret mode: at 1e-5 in "highest"
-(the two sum in a different order) and at 1e-2 in "default", where JAX
-rounds the weighted product to bf16 before its one-hot matmul
-(pallas_gscatter.py:280) and the port keeps the product in f32.
+(the two sum in a different order) and at 1e-4 of the output's scale in
+"default", where both read x in bf16 and round the weighted product to bf16
+before the f32 sum (pallas_gscatter.py:280); against the f32 dense product
+"default" is held at 1e-2 of the scale (x in bf16). The kernel's work-item
+schedule (build_schedule) is checked on its own.
 """
 
 import warnings
@@ -113,7 +115,7 @@ def test_slots_megahub_warns_like_jax():
     assert not gs.overflow and len(slots) == 300
 
 
-@pytest.mark.parametrize("prec,tol", [("highest", 1e-5), ("default", 1e-2)])
+@pytest.mark.parametrize("prec,tol", [("highest", 1e-5), ("default", 1e-4)])
 @pytest.mark.parametrize("case", ["plain", "megahub"])
 def test_plain_matches_jax_interpret(prec, tol, case):
     if case == "plain":
@@ -139,9 +141,10 @@ def test_plain_matches_jax_interpret(prec, tol, case):
         if prec == "highest":
             np.testing.assert_allclose(got, ref_out, rtol=tol, atol=tol)
         else:
-            # bf16 x: the error scales with the output, as in test_gscatter
+            # the error scales with the output, as in test_gscatter; the
+            # f32 dense product does not round x to bf16
             err = np.abs(got - ref_out).max() / np.abs(ref_out).max()
-            assert err < tol, err
+            assert err < (tol if ref_out is want else 1e-2), err
 
 
 def test_wrapper_takes_plain_version_on_cpu_only():
@@ -155,3 +158,71 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     torch.testing.assert_close(got, tgs.gscatter_spmm_plain(gs, x))
     with pytest.raises(ValueError, match="unsupported device"):
         tgs.gscatter_spmm(gs, x.to("meta"))
+
+
+def _check_schedule(chunk_ptr, budget):
+    item_ptr, item_stripe = tgs.build_schedule(chunk_ptr, budget)
+    ptr = np.asarray(chunk_ptr)
+    # every chunk exactly once, in order; no item over its budget
+    assert item_ptr[0] == 0 and item_ptr[-1] == ptr[-1]
+    sizes = np.diff(item_ptr)
+    assert (sizes > 0).all() and (sizes <= budget).all()
+    assert len(item_stripe) == len(sizes)
+    # each item starts in the stripe it names
+    np.testing.assert_array_equal(
+        item_stripe, np.searchsorted(ptr, item_ptr[:-1], side="right") - 1)
+    # an item packs whole stripes or lies inside one
+    for lo, hi, s in zip(item_ptr[:-1], item_ptr[1:], item_stripe):
+        last = np.searchsorted(ptr, hi, side="left")
+        assert ptr[s] == lo or hi <= ptr[s + 1]
+        assert hi == ptr[last] or last - 1 == s
+    return item_ptr, item_stripe
+
+
+@pytest.mark.parametrize("budget", [1, 3, 8, 40, 1000])
+def test_schedule_covers_every_chunk_once(budget):
+    # a hub stripe beside light ones and stripes of fillers only
+    a = _rand(700, 3000, seed=1).tolil()
+    a[0:64, :] = sp.random(64, 700, density=0.5, random_state=0)
+    a[300:500, :] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    gs = tgs.build_gscatter(a, tile=64, e_b=32, kb=2)
+    seg = gs.segments[0]
+    ptr = seg.chunk_ptr.numpy()
+    item_ptr, item_stripe = _check_schedule(ptr, budget)
+    counts = np.diff(ptr)
+    assert counts[0] > 8  # the hub stripe
+    # every stripe, the filler-only ones included, is reached by an item
+    reached = np.zeros(len(counts), bool)
+    for lo, hi in zip(item_ptr[:-1], item_ptr[1:]):
+        s0 = np.searchsorted(ptr, lo, side="right") - 1
+        s1 = np.searchsorted(ptr, hi, side="left")
+        reached[s0:s1] = True
+    assert reached.all()
+    if budget < counts[0]:
+        # the hub stripe is cut into near-equal items of its own
+        hub = np.diff(item_ptr)[item_stripe == 0]
+        assert len(hub) == -(-counts[0] // budget)
+        assert hub.max() - hub.min() <= 1
+
+
+def test_schedule_of_every_segment_and_level():
+    rng = np.random.default_rng(4)
+    r, c = rng.integers(64, 128, 300), rng.integers(0, 128, 300)
+    gs = tgs.build_gscatter_coo(r, c, np.ones(300, np.float32), (200, 128),
+                                tile=64, e_b=32, kb=2, max_steps=2)
+    assert gs.overflow
+    for level in (gs,) + gs.overflow:
+        for seg in level.segments:
+            for budget in (1, 2, 5):
+                _check_schedule(seg.chunk_ptr.numpy(), budget)
+
+
+def test_feat_width_fits_shared_memory():
+    assert tgs.feat_width(tgs.SPMM_TILE, 128) == tgs.FEAT_WIDTH
+    assert tgs.feat_width(512, 45) == 64 and tgs.feat_width(512, 20) == 32
+    assert tgs.feat_width(256, 128, widest=128) == 128
+    # 512 x 128 f32 is past the 227 KB a block can have
+    assert tgs.feat_width(512, 128, widest=128) == 64
+    assert tgs.feat_width(1024, 128) == 32

@@ -66,7 +66,8 @@ def _rand(n, m, nnz, seed, rows=None):
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
-@pytest.mark.parametrize("case", ["plain", "segments", "megahub", "ragged"])
+@pytest.mark.parametrize("case", ["plain", "segments", "megahub", "ragged",
+                                  "hub_items"])
 def test_gscatter_kernel_matches_plain(cuda, case, precision):
     kw = {}
     if case == "plain":
@@ -77,27 +78,68 @@ def test_gscatter_kernel_matches_plain(cuda, case, precision):
     elif case == "megahub":
         a, f = _rand(2000, 2000, 20000, 2, rows=(1024, 1536)), 64
         kw = dict(max_steps=2)
-    else:  # F not a multiple of 32, empty stripes, n not a multiple of 512
+    elif case == "ragged":
+        # F not a multiple of 32, empty stripes, n not a multiple of 512
         a, f = _rand(1300, 900, 5000, 3, rows=(0, 400)), 45
+    else:
+        # one stripe of 80,000 edges (many work items) beside light ones:
+        # segments and an overflow level
+        a = (_rand(3000, 3000, 80000, 8, rows=(0, 512))
+             + _rand(3000, 3000, 20000, 9)).tocsr()
+        f = 128
+        kw = dict(max_steps=40)
     c = a.tocoo()
     gs = tgs.build_gscatter_coo(c.row, c.col, c.data, a.shape, device=cuda,
                                 **kw)
-    if case == "megahub":
+    if case in ("megahub", "hub_items"):
         assert gs.overflow
     x = torch.randn(a.shape[1], f, device=cuda)
     before = tgs.gscatter_spmm.launches
     got = tgs.gscatter_spmm(gs, x, precision=precision)
     torch.cuda.synchronize()
-    assert tgs.gscatter_spmm.launches > before
+    levels = (gs,) + gs.overflow
+    assert tgs.gscatter_spmm.launches - before == sum(
+        len(lv.segments) for lv in levels)
     _close(got, tgs.gscatter_spmm_plain(gs, x, precision=precision))
+    if case == "hub_items":
+        assert len(gs.segments) > 1
+        # the hub stripe (stripe 0 of the first segment) took several items
+        (_, item_stripe), = gs.segments[0].schedules.values()
+        assert int((item_stripe == 0).sum()) >= 3
+
+
+def _hub_row(n, m, seed):
+    """Block row 0 holds every column block (hundreds), block rows 2 and 3
+    only their filler block, the rest a sparse sprinkle: enough blocks that
+    the kernel's work items hold several blocks each."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([rng.integers(0, 16, 2 * m), rng.integers(0, n, 3 * m)])
+    c = rng.integers(0, m, r.size)
+    keep = (r < 256) | (r >= 512)
+    a = sp.csr_matrix((rng.random(int(keep.sum())).astype(np.float32) + 0.5,
+                       (r[keep], c[keep])), shape=(n, m))
+    a.sum_duplicates()
+    return a
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
-@pytest.mark.parametrize("shape,f", [((1000, 1000), 128), ((700, 1300), 45)])
-def test_bsr_kernel_matches_plain(cuda, shape, f, precision):
-    a = _rand(*shape, 30000, 4)
+@pytest.mark.parametrize("case,f", [("square", 128), ("rect", 45),
+                                    ("hub_row", 45), ("hub_row", 128)])
+def test_bsr_kernel_matches_plain(cuda, case, f, precision):
+    if case == "square":
+        a = _rand(1000, 1000, 30000, 4)
+    elif case == "rect":
+        a = _rand(700, 1300, 30000, 4)
+    else:
+        a = _hub_row(700, 70000, 4)
+    shape = a.shape
     sm = SparseMatrix.from_scipy(a, backend="bsr", precision=precision,
                                  device=cuda)
+    if case == "hub_row":
+        counts = torch.diff(sm.bsr.row_ptr)
+        assert int(counts[0]) >= 40 and (counts[2:4] == 1).all()
+        items = tbsr.work_items(sm.bsr, f, cuda)
+        assert int((items[:, 2] - items[:, 1]).max()) > 1
     x = torch.randn(shape[1], f, device=cuda)
     before = tbsr.bsr_spmm.launches
     got = tbsr.bsr_spmm(sm.bsr, x, n_out=shape[0], precision=precision)
@@ -105,6 +147,8 @@ def test_bsr_kernel_matches_plain(cuda, shape, f, precision):
     assert tbsr.bsr_spmm.launches == before + 1
     _close(got, tbsr.bsr_spmm_plain(sm.bsr, x, n_out=shape[0],
                                     precision=precision))
+    if case == "hub_row":
+        assert (got[256:512] == 0).all()  # the filler-only rows
 
 
 @pytest.mark.parametrize("backend", ["gscatter", "bsr"])
