@@ -47,10 +47,13 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    COO-chunk attention kernels (gat_coo_fwd, gat_coo_bwd_row,
    gat_coo_bwd_col) in f32 and, against the f32 plain version at a looser
    bound, in bf16 ("default"), and the weighted gather-scatter combine
-   (gscatter_weighted) in the four combines of a training step; then times
-   one attention layer forward and forward + backward through each of the
-   BSR, COO-chunk and gather payloads on the same inputs (the crossover
-   the BSR budget waits for);
+   (gscatter_weighted) in the four combines of a training step, each case
+   with the combine's work items and its largest item's slots, and at the
+   10K graph's layer 1 the combine's sweep (``combine_sweep`` lines: the
+   gather tables' tile x the warps of a thread block, forward and dh);
+   then times one attention layer forward and forward + backward through
+   each of the BSR, COO-chunk and gather payloads on the same inputs (the
+   crossover the BSR budget waits for);
 8. (``gat_scale_cli``) trains GAT for 5 epochs through the CLI on the 10K
    graph (past the BSR budget) with ``--fused_attention``: ``auto`` with
    the published ``--attn_drop 0.6`` (routes to the gather payload and
@@ -63,9 +66,14 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    (whose backward reads the transpose tables) and on the 250K-node graph
    of the JAX package's bench_large.py (``scale_graph``: 799,540 adjacency
    and 24,999,792 A2 entries) with its A1 and A2 cluster-ordered; prints
-   each case's error, tolerance, times and bound and each matrix's heaviest
-   tile row, and times A2 at 250K (F = 64, "highest") at tiles 256, 512 and
-   1024, the sweep that set the port's default tile;
+   each case's error, tolerance, times and bound, each matrix's heaviest
+   tile row, the kernel's chunk ranges (``ranges``) and the runs of one
+   destination row inside a chunk (``row_runs``), and the sweep that set
+   the default geometry and schedule (``cootile_sweep`` lines, "highest":
+   tile 128 and 256 x 64 and 128 features a thread block x the groups a
+   warp walks before the next warp's (0 or 4) and the slots of a block's
+   range (16,384 or 65,536), at the 10K A2, F = 128, the 250K A2, F = 64
+   and 128, and the 250K A1, F = 128);
 10. (``cootile_cli``) trains H2GCN-2 for 5 epochs through the CLI with
    ``--sparse_backend cootile`` on the 10K graph, and on the 250K graph
    written as planetoid files with ``--reorder cluster --sparse_features``;
@@ -344,7 +352,8 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
     if kernel == "gscatter_spmm":
         shape_info = _gscatter_shape(sm.gsc, F, x.device)
     elif kernel == "cootile_spmm":
-        shape_info = _cootile_shape(sm.coot, sm.nnz)
+        shape_info = _cootile_shape(sm.coot, sm.nnz, F, x.device,
+                                    x_bytes=m * F * xbytes)
     else:
         # what the dense 128 x 128 blocks cost at least: the padding the
         # BSR layout adds on top of the bound
@@ -392,12 +401,29 @@ def _bsr_shape(b, F, device):
             "max_row_blocks": int((b.row_ptr[1:] - b.row_ptr[:-1]).max())}
 
 
-def _cootile_shape(ct, nnz):
+_ROW_RUNS = {}  # id(CooTile) -> (CooTile, its row runs)
+
+
+def _cootile_shape(ct, nnz, F, device, width=None, range_slots=None,
+                   piece=None, x_bytes=None):
     """What sets a COO-tile SpMM's work beside its edges: the geometry, the
-    padding slots and the heaviest tile row (spread over thread blocks)."""
+    padding slots, the heaviest tile row (spread over thread blocks), the
+    thread blocks' chunk ranges and features, and the runs of one
+    destination row inside a chunk (the kernel's shared-memory adds per
+    feature; ``edges_per_run`` the adds each run saves)."""
+    from h2gcn_tpu_torch.sparse.cootile import row_runs, work_shape
+
+    if id(ct) not in _ROW_RUNS:  # the entry keeps ct, so its id stays
+        _ROW_RUNS[id(ct)] = (ct, row_runs(ct))
+    runs = _ROW_RUNS[id(ct)][1]
+    w, per_block, ranges, piece = work_shape(ct, F, device, width,
+                                             range_slots, piece, x_bytes)
     return {"tile": ct.tile, "e_b": ct.e_b, "chunks": ct.num_chunks,
             "slot_fill": nnz / (ct.num_chunks * ct.e_b),
-            "heaviest_row_chunks": ct.heaviest_row_chunks()}
+            "heaviest_row_chunks": ct.heaviest_row_chunks(),
+            "width": w, "chunks_per_block": per_block, "ranges": ranges,
+            "piece": piece,
+            "row_runs": runs, "edges_per_run": nnz / max(runs, 1)}
 
 
 def cootile_matrices():
@@ -420,7 +446,48 @@ def cootile_matrices():
     return mats
 
 
-SWEEP_TILES = (256, 512, 1024)
+# B3's geometry sweep, "highest": matrix -> its widths F; at each, the
+# table tile x the features a thread block takes x the schedule (32-slot
+# groups a warp walks before the next warp's, 0: one piece a warp; table
+# slots a thread block walks)
+SWEEP_COOTILE = {"A2": (128,), "A2c_250k": (64, 128), "A1c_250k": (128,)}
+SWEEP_COOTILE_TILES = (128, 256)
+SWEEP_COOTILE_WIDTHS = (64, 128)
+SWEEP_COOTILE_SCHEDULES = ((0, 16384), (0, 65536), (4, 16384), (4, 65536))
+
+
+def cootile_sweep(mname, mat, sm, device, gen):
+    """The COO-tile kernel over the table tile, the features one thread
+    block takes (tile x width f32 of shared memory) and the schedule (the
+    groups a warp walks before the next warp's, the table slots of a
+    block's chunk range), at ``mat``'s widths in :data:`SWEEP_COOTILE`: the
+    sweep that set ``DEFAULT_TILE``, ``FEAT_WIDTH`` and the two regimes of
+    ``cootile.schedule``. ``sm`` holds the tables at the default tile."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse.cootile import build_cootile, cootile_spmm
+
+    xs = {F: torch.randn(mat.shape[1], F, generator=gen, device=device)
+          for F in SWEEP_COOTILE[mname]}
+    for tile in SWEEP_COOTILE_TILES:
+        t0 = time.perf_counter()
+        ct = (sm.coot if tile == sm.coot.tile
+              else build_cootile(mat, tile=tile, device=device))
+        build_s = time.perf_counter() - t0
+        for F, x in xs.items():
+            for width in SWEEP_COOTILE_WIDTHS:
+                for piece, slots in SWEEP_COOTILE_SCHEDULES:
+                    if width > F:
+                        continue
+                    emit(dict(_cootile_shape(ct, sm.nnz, F, device, width,
+                                             slots, piece),
+                              cootile_sweep=mname, F=F, precision="highest",
+                              range_slots=slots,
+                              kernel_ms=time_ms(lambda: cootile_spmm(
+                                  ct, x, width=width, range_slots=slots,
+                                  piece=piece), 20),
+                              build_s=build_s, s=time.perf_counter() - t0))
+        del ct
 
 
 def check_cootile_kernels(device):
@@ -431,8 +498,7 @@ def check_cootile_kernels(device):
     import torch
 
     from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
-    from h2gcn_tpu_torch.sparse.cootile import (build_cootile, cootile_spmm,
-                                                cootile_spmm_plain)
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm, cootile_spmm_plain
 
     t0 = time.perf_counter()
     mats = cootile_matrices()
@@ -447,8 +513,8 @@ def check_cootile_kernels(device):
         # one table set serves both precisions
         sm = SparseMatrix.from_scipy(mat, backend="cootile", device=device)
         lib_a = _library_csr(mat, device)
-        emit(dict(_cootile_shape(sm.coot, sm.nnz), matrix=mname, n=n,
-                  nnz=sm.nnz, symmetric=sm.symmetric,
+        emit(dict(_cootile_shape(sm.coot, sm.nnz, 128, device),
+                  matrix=mname, n=n, nnz=sm.nnz, symmetric=sm.symmetric,
                   build_s=time.perf_counter() - t0))
         for precision in ("highest", "default"):
             s = dataclasses.replace(sm, precision=precision)
@@ -492,18 +558,9 @@ def check_cootile_kernels(device):
                     emit(case)
                     results.append(case)
                 del x, g, xr, y
-        if mname == "A2c_250k":
-            # the default tile: A2 at 250K, F = 64, "highest"
-            x = torch.randn(m, 64, generator=gen, device=device)
-            for tile in SWEEP_TILES:
-                t0 = time.perf_counter()
-                ct = (sm.coot if tile == sm.coot.tile
-                      else build_cootile(mat, tile=tile, device=device))
-                build_s = time.perf_counter() - t0
-                emit(dict(_cootile_shape(ct, sm.nnz), tile_sweep=mname, F=64,
-                          kernel_ms=time_ms(lambda: cootile_spmm(ct, x), 20),
-                          build_s=build_s, s=time.perf_counter() - t0))
-                del ct
+        if mname in SWEEP_COOTILE:
+            cootile_sweep(mname, mat, sm, device, gen)
+        _ROW_RUNS.clear()
         del sm, lib_a, mat
         torch.cuda.empty_cache()
     return results
@@ -733,6 +790,58 @@ def _bmm_library_ms(ga, wf, x, H, F):
     return time_ms(lambda: torch.bmm(a, xb), 20)
 
 
+def _combine_shape(ga, gs, f, warps=None):
+    """The combine's work items over ``gs`` (``ga``'s forward or transpose
+    tables; a heavy stripe is spread over several), its columns a thread
+    block and warps."""
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+
+    items = ga.items_fwd if gs is ga.fwd else ga.items_bwd
+    slots = np.concatenate([np.diff(ptr.cpu().numpy()) * gs.e_b
+                            for ptr, _ in items])
+    stripe_slots = np.concatenate([np.diff(seg.chunk_ptr.cpu().numpy())
+                                   * gs.e_b for seg in gs.segments])
+    return {"tile": gs.tile, "width": gat.combine_width(gs.tile, f),
+            "warps": warps or gat.COMBINE_WARPS,
+            "work_items": int(slots.size),
+            "max_slots_per_item": int(slots.max()),
+            "max_stripe_slots": int(stripe_slots.max())}
+
+
+# the combine's geometry sweep at the 10K graph's layer 1: the gather
+# tables' tile x the warps of a thread block
+SWEEP_COMBINE_TILES = (128, 512)
+SWEEP_COMBINE_WARPS = (16, 32)
+
+
+def combine_sweep(support, combines, H, device):
+    """The weighted combine's forward (augmented) and dh combines over the
+    tables' tile and the warps a thread block: the sweep that set
+    ``GATHER_TILE`` and ``COMBINE_WARPS``. ``combines`` holds each
+    combine's (tables, slot map, weights, x, wl) at the default tile; the
+    weights are per edge and serve any tile."""
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+
+    for tile in SWEEP_COMBINE_TILES:
+        t0 = time.perf_counter()
+        ga = gat.build_gatherattn(support, tile=tile, device=device)
+        build_s = time.perf_counter() - t0
+        for cname in ("forward", "dh"):
+            _, _, wf, x, wl = combines[cname]
+            gs, s2e, items = ((ga.fwd, ga.slot2edge_fwd, ga.items_fwd)
+                              if cname == "forward"
+                              else (ga.bwd, ga.slot2edge_bwd, ga.items_bwd))
+            for warps in SWEEP_COMBINE_WARPS:
+                emit(dict(_combine_shape(ga, gs, x.shape[1], warps),
+                          combine_sweep=cname, graph="syn10k", H=H,
+                          x_cols=x.shape[1],
+                          kernel_ms=time_ms(lambda: gat.gscatter_weighted(
+                              gs, s2e, wf, x, num_heads=H, wl=wl,
+                              items=items, warps=warps), 20),
+                          build_s=build_s, s=time.perf_counter() - t0))
+        del ga
+
+
 def check_gat_scale_kernels(device):
     """Phase 7: the COO-chunk attention kernels and the weighted combine
     against their plain versions, timed, at the shapes GAT takes past the
@@ -765,6 +874,8 @@ def check_gat_scale_kernels(device):
               "coo_chunks": ac.num_chunks,
               "coo_max_tile_slots": max(sg.max_tile_slots for sg in ac.fwd),
               "gather_slots": ga.total_slots_fwd,
+              "gather_items": [len(ga.items_fwd[0][1]),
+                               len(ga.items_bwd[0][1])],
               "max_stripe_nnz": int(np.add.reduceat(
                   np.diff(support.indptr), np.arange(0, n, 512)).max()),
               "max_row_nnz": int(np.diff(support.indptr).max()),
@@ -833,9 +944,11 @@ def check_gat_scale_kernels(device):
                         gat._augx(g, gl, H, F), q),
             }
             for cname, (gs, s2e, wf, x, wl) in combines.items():
-                def run(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl):
+                items = ga.items_fwd if gs is ga.fwd else ga.items_bwd
+
+                def run(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl, items=items):
                     return gat.gscatter_weighted(gs, s2e, wf, x, num_heads=H,
-                                                 wl=wl)
+                                                 wl=wl, items=items)
 
                 def plain(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl):
                     return gat.gscatter_weighted_plain(gs, s2e, wf, x,
@@ -846,9 +959,10 @@ def check_gat_scale_kernels(device):
                 torch.cuda.synchronize()
                 bound_ms, bound_by = _combine_bounds(
                     E, x.shape[0], gs.n_rows, H, x.shape[1], wl is not None)
-                case = dict(kernel="gscatter_weighted", combine=cname,
+                case = dict(_combine_shape(ga, gs, x.shape[1]),
+                            kernel="gscatter_weighted", combine=cname,
                             graph=gname, n=n, support_nnz=E, H=H, F=F,
-                            width=x.shape[1], max_abs_err=err, tol=tol,
+                            x_cols=x.shape[1], max_abs_err=err, tol=tol,
                             kernel_ms=time_ms(run, 20),
                             plain_ms=time_ms(plain, 5),
                             bound_ms=bound_ms, bound_by=bound_by,
@@ -857,6 +971,8 @@ def check_gat_scale_kernels(device):
                             s=time.perf_counter() - t0)
                 emit(case)
                 results["gscatter_weighted"].append(case)
+            if gname == "syn10k" and H == 8:
+                combine_sweep(support, combines, H, device)
 
             # one attention layer, forward and forward + backward, through
             # each payload on the same inputs

@@ -43,79 +43,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather.cuh"
+
 namespace {
+
+using h2gcn::Gather;
+using h2gcn::product;
 
 constexpr int kWarps = 32;  // more warps in flight hide the gathers best
 constexpr int kThreads = kWarps * 32;
 constexpr int kInFlight = 8;  // gathers each warp issues before it adds
 constexpr unsigned kFull = 0xffffffffu;
-
-// V contiguous features of one x row; vec: f % V == 0 and x aligned, so
-// a lane whose first feature is in range has all V in range
-template <typename T, int V>
-struct Gather;
-
-template <int V>
-struct Gather<float, V> {
-  static __device__ __forceinline__ void load(const float* p, int avail,
-                                              bool vec, float (&out)[V]) {
-    if (vec && avail >= V) {
-      if constexpr (V == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(p);
-        out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-      } else if constexpr (V == 2) {
-        const float2 t = *reinterpret_cast<const float2*>(p);
-        out[0] = t.x; out[1] = t.y;
-      } else {
-        out[0] = *p;
-      }
-      return;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) out[e] = e < avail ? p[e] : 0.f;
-  }
-};
-
-template <int V>
-struct Gather<__nv_bfloat16, V> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              int avail, bool vec,
-                                              float (&out)[V]) {
-    if (vec && avail >= V) {
-      if constexpr (V == 4) {
-        const uint2 t = *reinterpret_cast<const uint2*>(p);
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&t.x));
-        const float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&t.y));
-        out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-      } else if constexpr (V == 2) {
-        const float2 a =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-        out[0] = a.x; out[1] = a.y;
-      } else {
-        out[0] = __bfloat162float(*p);
-      }
-      return;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      out[e] = e < avail ? __bfloat162float(p[e]) : 0.f;
-    }
-  }
-};
-
-// the weighted product as the precision rounds it
-template <typename T>
-__device__ __forceinline__ float product(float v, float x);
-template <>
-__device__ __forceinline__ float product<float>(float v, float x) {
-  return v * x;
-}
-template <>
-__device__ __forceinline__ float product<__nv_bfloat16>(float v, float x) {
-  return __bfloat162float(__float2bfloat16(v * x));
-}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -221,8 +159,7 @@ cudaError_t launch(const int* item_ptr, const int* item_stripe, int n_items,
       gscatter_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const int vec = f % V == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % (V * sizeof(T)) == 0;
+  const int vec = h2gcn::vector_gathers<T, V>(x, f);
   const dim3 grid(n_items, (f + 32 * V - 1) / (32 * V));
   gscatter_kernel<T, V><<<grid, kThreads, smem, stream>>>(
       item_ptr, item_stripe, chunk_ptr, rows, cols, vals, x, y, rb_lo, tile,

@@ -41,7 +41,8 @@ from ..nn.ops import dropout
 from ..sparse import SparseMatrix, transforms
 from ..sparse.attention import gat_attention
 from ..sparse.attention_coo import gat_attention_coo
-from ..sparse.attention_gather import (GatherAttn, gat_attention_gather,
+from ..sparse.attention_gather import (GATHER_TILE, GatherAttn,
+                                       gat_attention_gather,
                                        gather_attention_coefficients)
 from . import _runtime
 
@@ -389,7 +390,8 @@ def _gather_stream_bytes(n: int, nnz: int, heads: int = 8) -> int:
 
     * the gscatter tables in both orientations: rows, cols and vals (12 B
       a slot) and the slot -> edge map (4 B), each twice; slots estimated
-      at 115% of nnz plus 8 chunks of 128 a 512-row stripe;
+      at 115% of nnz plus 8 chunks of 128 a stripe of ``GATHER_TILE``
+      rows;
     * the edge list (two int64 columns, 16 B an edge) and the slot maps of
       each edge (16 B);
     * the [E, H] f32 edge streams live at once in the backward (s, p,
@@ -398,7 +400,7 @@ def _gather_stream_bytes(n: int, nnz: int, heads: int = 8) -> int:
 
     The combines gather inside the kernel, so no [slots, F] buffer exists.
     """
-    slots = int(nnz * 1.15) + (-(-n // 512)) * 8 * 128
+    slots = int(nnz * 1.15) + (-(-n // GATHER_TILE)) * 8 * 128
     per_slot = 2 * (12 + 4)
     per_edge = heads * 4 * 8 + 16 + 16
     return slots * per_slot + nnz * per_edge

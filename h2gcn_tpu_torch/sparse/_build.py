@@ -35,15 +35,16 @@ _SIGNATURES = {
     "h2gcn_gscatter_spmm": [_P, _P, _I] + [_P] * 5 + [_I, _P]
                            + [_I] * 6 + [_P],
     "h2gcn_bsr_spmm": [_P, _I] + [_P] * 3 + [_I, _P, _I, _I, _I, _P],
-    "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
+    "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 8 + [_P],
     "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_bwd_col": [_P] * 13 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_coo_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "h2gcn_gat_coo_bwd_row": [_P] * 14 + [_I] * 7 + [_F, _I, _P],
     "h2gcn_gat_coo_bwd_col": [_P] * 15 + [_I] * 7 + [_F, _I, _P],
-    "h2gcn_gscatter_weighted": [_P] * 5 + [_L, _L, _I, _P, _P, _I, _I, _P,
-                                           _I, _P] + [_I] * 6 + [_P],
+    "h2gcn_gscatter_weighted": [_P, _P, _I] + [_P] * 5
+                               + [_L, _L, _I, _P, _P, _I, _I, _P, _I, _P]
+                               + [_I] * 7 + [_P],
 }
 
 

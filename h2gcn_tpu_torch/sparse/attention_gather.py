@@ -11,7 +11,10 @@ splits at the boundary the SpMM ladder has:
 - **the combine** ``out_i = sum_e w_e x[col_e]``: a gather-scatter SpMM with
   per-edge, per-head weights, :func:`gscatter_weighted`, which launches
   ``csrc/gscatter_weighted.cu`` over the gscatter tables of
-  :func:`~.gscatter.build_gscatter_coo` in both orientations.
+  :func:`~.gscatter.build_gscatter_coo` in both orientations, one thread
+  block per work item that :func:`~.gscatter.build_schedule` cuts from
+  each segment's chunks (kept beside the tables, so a heavy stripe is
+  spread over many blocks).
 
 The whole attention is one ``torch.autograd.Function``
 (:func:`gather_attention`), and no direction runs a segment reduction: the
@@ -43,7 +46,18 @@ import torch
 
 from . import _build
 from .attention import _leaky
-from .gscatter import GScatter, _operand, build_gscatter_coo
+from .gscatter import (_MAX_SHARED, GScatter, _operand, build_gscatter_coo,
+                       build_schedule, chunk_budget)
+
+# the combine kernel's warps a thread block, and the table tile of
+# build_gatherattn: the fastest of 16 and 32 warps x tile 128 and 512 for
+# the 10K graph's layer-1 combines on the H100 (PERF.md, section 6); the
+# tables of the JAX package's default tile (512) are the same function
+COMBINE_WARPS = 16
+GATHER_TILE = 128
+# streaming multiprocessors the work items are cut for when the tables are
+# built off the card (the H100's)
+_SMS = 132
 
 
 @dataclasses.dataclass
@@ -51,10 +65,12 @@ class GatherAttn:
     """Fused-attention payload: gscatter tables in both orientations, the
     edge list in CSR order and the edge <-> slot maps.
 
-    ``fwd`` groups edges by destination 512-row stripe (forward combine,
-    df1), ``bwd`` the same edges by source stripe (dh, df2).
+    ``fwd`` groups edges by destination stripe of ``tile`` rows (forward
+    combine, df1), ``bwd`` the same edges by source stripe (dh, df2).
     ``slot2edge_*[s]`` is the edge of global slot ``s`` (``num_edges`` for
-    a padding slot). ``n_src`` is the source count of a rectangular
+    a padding slot). ``items_*`` holds, per segment of ``fwd`` / ``bwd``,
+    the combine kernel's work items ``(item_ptr, item_stripe)``
+    (:func:`combine_items`). ``n_src`` is the source count of a rectangular
     support (0: square)."""
 
     fwd: GScatter
@@ -65,6 +81,8 @@ class GatherAttn:
     slot_bwd: torch.Tensor      # [E] int64
     slot2edge_fwd: torch.Tensor  # [total_slots_fwd] int32
     slot2edge_bwd: torch.Tensor  # [total_slots_bwd] int32
+    items_fwd: tuple = ()       # per fwd segment (item_ptr, item_stripe)
+    items_bwd: tuple = ()       # per bwd segment
     n: int = 0
     num_edges: int = 0
     n_src: int = 0
@@ -82,11 +100,39 @@ class GatherAttn:
         return max(s.slot_hi for s in self.bwd.segments)
 
 
-def build_gatherattn(csr, tile: int = 512, e_b: int = 128, kb: int = 8,
-                     device="cpu") -> GatherAttn:
+def combine_items(gs: GScatter, sms: int = _SMS) -> tuple:
+    """The combine kernel's work items over each segment of ``gs``:
+    ``(item_ptr, item_stripe)`` int32 tensors on the tables' device, cut
+    by :func:`~.gscatter.build_schedule` at B1's chunk budget for ``sms``
+    SMs (the widths the attention combines take one column tile)."""
+    items = []
+    for seg in gs.segments:
+        ptr = seg.chunk_ptr.cpu().numpy()
+        item_ptr, item_stripe = build_schedule(
+            ptr, chunk_budget(int(ptr[-1]), gs.e_b, sms))
+        dev = seg.chunk_ptr.device
+        items.append((torch.from_numpy(item_ptr).to(dev),
+                      torch.from_numpy(item_stripe).to(dev)))
+    return tuple(items)
+
+
+def combine_width(tile: int, f: int) -> int:
+    """Columns one combine thread block takes: 32 a lane-column, as many
+    (at most 4) as cover ``f``, fewer where ``tile`` rows of them would
+    not fit in shared memory."""
+    v = min(4, max(1, -(-f // 32)))
+    while v > 1 and tile * 32 * v * 4 > _MAX_SHARED:
+        v -= 1
+    return 32 * v
+
+
+def build_gatherattn(csr, tile: int = GATHER_TILE, e_b: int = 128,
+                     kb: int = 8, device="cpu") -> GatherAttn:
     """Host prep from the attention support (any stored entry is an edge;
     values are ignored). A rectangular support (n destination rows x m
-    source rows) indexes f1 over destinations and f2, h over sources."""
+    source rows) indexes f1 over destinations and f2, h over sources. The
+    combine's work items are cut for ``device``'s SMs (off the card, for
+    the H100's)."""
     import scipy.sparse as sp
 
     csr = sp.csr_matrix(csr)
@@ -110,10 +156,14 @@ def build_gatherattn(csr, tile: int = 512, e_b: int = 128, kb: int = 8,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
 
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else _SMS)
     return GatherAttn(
         fwd=gs_f, bwd=gs_b, rows=dev(r), cols=dev(c),
         slot_fwd=dev(slot_f), slot_bwd=dev(slot_b),
         slot2edge_fwd=inv(slot_f, gs_f), slot2edge_bwd=inv(slot_b, gs_b),
+        items_fwd=combine_items(gs_f, sms), items_bwd=combine_items(gs_b, sms),
         n=n, num_edges=E, n_src=0 if m == n else m)
 
 
@@ -157,13 +207,16 @@ def gscatter_weighted_plain(gs: GScatter, slot2edge, wf, x, *,
 
 
 def gscatter_weighted(gs: GScatter, slot2edge, wf, x, *, num_heads: int,
-                      wl=None, precision: str = "highest") -> torch.Tensor:
+                      wl=None, precision: str = "highest", items=None,
+                      warps: int = COMBINE_WARPS) -> torch.Tensor:
     """``A_w @ x`` over gather tables: edge ``e`` (slot ``s`` with
     ``slot2edge[s] = e``) weighs column ``c`` of its source row by
     ``wf[e, c // fw]`` (``fw = x.shape[1] / num_heads``), or with ``wl``
     its head's last column by ``wl[e, c // fw]``. A CPU tensor takes
     :func:`gscatter_weighted_plain`; a CUDA tensor launches
-    ``h2gcn_gscatter_weighted`` (once per segment) or raises."""
+    ``h2gcn_gscatter_weighted`` (once per segment, over the segment's work
+    ``items`` from :class:`GatherAttn`, ``warps`` warps a block, into one
+    zeroed output) or raises."""
     kw = dict(num_heads=num_heads, wl=wl, precision=precision)
     if x.device.type == "cpu":
         return gscatter_weighted_plain(gs, slot2edge, wf, x, **kw)
@@ -176,6 +229,9 @@ def gscatter_weighted(gs: GScatter, slot2edge, wf, x, *, num_heads: int,
     if gs.overflow:
         raise ValueError("gscatter_weighted: tables with overflow levels "
                          "have no edge -> slot map")
+    if items is None or len(items) != len(gs.segments):
+        raise ValueError("gscatter_weighted: needs the work items of each "
+                         "segment (GatherAttn.items_fwd / items_bwd)")
     E = wf.shape[0]
     for name, w in (("wf", wf), ("wl", wl)):
         if w is not None and (w.shape != (E, H) or w.dtype != torch.float32
@@ -185,24 +241,30 @@ def gscatter_weighted(gs: GScatter, slot2edge, wf, x, *, num_heads: int,
                              f"{tuple(w.shape)}")
     xk = _operand(x, precision).contiguous()
     f = xk.shape[1]
-    out = torch.empty(gs.n_rows, f, dtype=torch.float32, device=xk.device)
+    out = torch.zeros(gs.n_rows, f, dtype=torch.float32, device=xk.device)
     if f == 0 or gs.n_rows == 0:
-        return out.zero_()
-    for t in [slot2edge, wf, wl] + [u for seg in gs.segments for u in (
-            seg.chunk_ptr, seg.rows, seg.cols, seg.vals)]:
+        return out
+    width = combine_width(gs.tile, f)
+    if gs.tile * width * 4 > _MAX_SHARED:
+        raise ValueError(f"gscatter_weighted: tile {gs.tile} does not fit "
+                         "the kernel's shared stripe")
+    for t in [slot2edge, wf, wl] + [u for seg, its in zip(gs.segments, items)
+                                    for u in (seg.chunk_ptr, seg.rows,
+                                              seg.cols, seg.vals) + its]:
         if t is not None and (t.device != xk.device or not t.is_contiguous()):
             raise ValueError("gscatter_weighted: tensors must be contiguous "
                              f"and on {xk.device}")
     lib, _ = _build.library()
     stream = torch.cuda.current_stream(xk.device).cuda_stream
-    for seg in gs.segments:
+    for seg, (item_ptr, item_stripe) in zip(gs.segments, items):
         err = lib.h2gcn_gscatter_weighted(
-            seg.chunk_ptr.data_ptr(), seg.rows.data_ptr(),
-            seg.cols.data_ptr(), seg.vals.data_ptr(), slot2edge.data_ptr(),
-            seg.slot_lo, seg.slot_hi - seg.slot_lo, E, wf.data_ptr(),
-            None if wl is None else wl.data_ptr(), H, f // H, xk.data_ptr(),
-            int(xk.dtype == torch.bfloat16), out.data_ptr(),
-            seg.rb_hi - seg.rb_lo, seg.rb_lo, gs.tile, gs.e_b, gs.n_rows, f,
+            item_ptr.data_ptr(), item_stripe.data_ptr(),
+            int(item_stripe.shape[0]), seg.chunk_ptr.data_ptr(),
+            seg.rows.data_ptr(), seg.cols.data_ptr(), seg.vals.data_ptr(),
+            slot2edge.data_ptr(), seg.slot_lo, seg.slot_hi - seg.slot_lo, E,
+            wf.data_ptr(), None if wl is None else wl.data_ptr(), H, f // H,
+            xk.data_ptr(), int(xk.dtype == torch.bfloat16), out.data_ptr(),
+            seg.rb_lo, gs.tile, gs.e_b, gs.n_rows, f, width // 32, warps,
             stream)
         _build.check(lib, err, "gscatter_weighted")
         gscatter_weighted.launches += 1
@@ -246,8 +308,9 @@ class _GatherAttention(torch.autograd.Function):
         # numerator weights p * m (attention dropout), denominator p
         awf = p if m is None else (p * m).contiguous()
         ones = torch.ones(h.shape[0], H, dtype=torch.float32, device=h.device)
-        oa = gscatter_weighted(ga.fwd, ga.slot2edge_fwd, awf, _augx(h, ones, H, F),
-                               num_heads=H, wl=p, precision=precision)
+        oa = gscatter_weighted(ga.fwd, ga.slot2edge_fwd, awf,
+                               _augx(h, ones, H, F), num_heads=H, wl=p,
+                               precision=precision, items=ga.items_fwd)
         oa = oa.reshape(-1, H, F + 1)
         l = oa[..., F]
         lhat = torch.where(l == 0, 1.0, l)
@@ -272,14 +335,17 @@ class _GatherAttention(torch.autograd.Function):
         qm = q if m is None else (q * m).contiguous()
         pm = p if m is None else (p * m).contiguous()
         kw = dict(num_heads=H, precision=precision)
-        dh = gscatter_weighted(ga.bwd, ga.slot2edge_bwd, pm, gN, **kw)
+        dh = gscatter_weighted(ga.bwd, ga.slot2edge_bwd, pm, gN,
+                               items=ga.items_bwd, **kw)
         ones = torch.ones(h.shape[0], H, dtype=torch.float32, device=h.device)
         nt = gscatter_weighted(ga.fwd, ga.slot2edge_fwd, qm,
-                               _augx(h, ones, H, F), wl=q, **kw)
+                               _augx(h, ones, H, F), wl=q,
+                               items=ga.items_fwd, **kw)
         nt3 = nt.reshape(-1, H, F + 1)
         df1 = (gN.reshape(-1, H, F) * nt3[..., :F]).sum(dim=-1) + gl * nt3[..., F]
         tt = gscatter_weighted(ga.bwd, ga.slot2edge_bwd, qm,
-                               _augx(gN, gl, H, F), wl=q, **kw)
+                               _augx(gN, gl, H, F), wl=q,
+                               items=ga.items_bwd, **kw)
         tt3 = tt.reshape(-1, H, F + 1)
         df2 = (h.float().reshape(-1, H, F) * tt3[..., :F]).sum(dim=-1) + tt3[..., F]
         return (df1.to(f1.dtype), df2.to(f2.dtype), dh.to(h.dtype),
@@ -324,7 +390,8 @@ class _GatherCombine(torch.autograd.Function):
         ctx.conf = (ga, num_heads, feat, precision)
         return gscatter_weighted(ga.fwd, ga.slot2edge_fwd,
                                  alpha.float().contiguous(), h,
-                                 num_heads=num_heads, precision=precision)
+                                 num_heads=num_heads, precision=precision,
+                                 items=ga.items_fwd)
 
     @staticmethod
     def backward(ctx, g):
@@ -334,7 +401,7 @@ class _GatherCombine(torch.autograd.Function):
         # dh = (A_alpha)^T g over the transpose tables
         dh = gscatter_weighted(ga.bwd, ga.slot2edge_bwd,
                                alpha.float().contiguous(), gf, num_heads=H,
-                               precision=precision)
+                               precision=precision, items=ga.items_bwd)
         # dalpha_e = g[row_e] . h[col_e] per head: an edge-major SDDMM
         dalpha = (gf[ga.rows] * h.float()[ga.cols]).reshape(
             ga.num_edges, H, F).sum(dim=-1)

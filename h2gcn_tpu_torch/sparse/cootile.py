@@ -26,17 +26,30 @@ import numpy as np
 import torch
 
 from . import _build
-from .gscatter import _operand
+from .gscatter import _MAX_SHARED, _operand, feat_width
 
 KB = 8  # chunks per step of the JAX package's grid; kept for table parity
-# build_cootile's tile when none is given: the fastest of 256, 512 and 1024
-# for the cluster-ordered 250K-node A2 at F = 64 on the H100, and for the
-# 10K-node A2 at F = 64 and 128 (PERF.md, section 6)
+# build_cootile's tile when none is given, and the widest feature tile of
+# one thread block: the fastest of tile 128 and 256 x 64 and 128 features
+# at the 10K-node A2 (F = 128) and the cluster-ordered 250K-node A2
+# (F = 64 and 128) on the H100 (PERF.md, section 6)
 DEFAULT_TILE = 256
-_MAX_TILE = 1024  # the kernel's shared accumulator is tile x 32 f32
-# table slots a thread block walks (chunks_per_block = this // e_b): its
-# flush of up to tile x 32 outputs stays small beside its edges' gathers
+FEAT_WIDTH = 128
+# the kernel's shared accumulator is tile x width f32, width at least 32
+_MAX_TILE = _MAX_SHARED // (32 * 4)
+# The kernel's schedule, in two regimes (the H100 sweep in PERF.md,
+# section 6): the table slots a thread block walks (chunks_per_block = this
+# // e_b) and the 32-slot groups a warp walks before the next warp's (0: one
+# contiguous piece of a tile row's slots a warp). Where x fits in half the
+# L2 or the tables are mostly padding, a warp takes one piece and a block
+# 16,384 slots; where x is past half the L2 over tables at least 10% full,
+# a block's warps walk pieces of 4 groups round-robin, so they gather rows
+# of neighbouring tile columns at once, over ranges of 65,536 slots (a
+# quarter of the global flushes).
 _SLOTS_PER_BLOCK = 16384
+_SLOTS_PER_BLOCK_PAST_L2 = 65536
+_PIECE_PAST_L2 = 4
+_MIN_FILL_PAST_L2 = 0.1
 # ...but a small matrix gets smaller ranges, so that the grid still holds
 # this many thread blocks per SM
 _MIN_BLOCKS_PER_SM = 4
@@ -164,6 +177,7 @@ class CooTile:
     kb: int
     n_rows: int
     n_cols: int
+    nnz: int = 0           # live slots
 
     @property
     def num_chunks(self) -> int:
@@ -191,17 +205,67 @@ def build_cootile(csr, tile: int | None = None, e_b: int | None = None,
     return CooTile(ctr=dev(ctr), ctc=dev(ctc), rows=dev(rows),
                    cols=dev(cols), vals=dev(vals), row_ptr=dev(row_ptr),
                    tile=tile, e_b=int(e_b), kb=int(kb), n_rows=int(n),
-                   n_cols=int(m))
+                   n_cols=int(m), nnz=int(np.count_nonzero(vals)))
 
 
-def _chunks_per_block(ct: CooTile, f: int, device) -> int:
-    """Chunks one thread block walks: :data:`_SLOTS_PER_BLOCK` worth, or
-    fewer where that would leave under :data:`_MIN_BLOCKS_PER_SM` blocks per
-    SM (one block per range and 32-feature tile)."""
-    per_range = max(1, _SLOTS_PER_BLOCK // ct.e_b)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ranges = -(-_MIN_BLOCKS_PER_SM * sms // -(-f // 32))
+def _chunks_per_block(ct: CooTile, f: int, width: int, sms: int,
+                      range_slots: int = _SLOTS_PER_BLOCK) -> int:
+    """Chunks one thread block walks: ``range_slots`` worth, or fewer where
+    that would leave under :data:`_MIN_BLOCKS_PER_SM` blocks on each of
+    ``sms`` SMs (one block per range and feature tile of ``width``; at the
+    widths H2GCN aggregates, one tile covers F)."""
+    per_range = max(1, range_slots // ct.e_b)
+    ranges = -(-_MIN_BLOCKS_PER_SM * sms // -(-f // width))
     return max(1, min(per_range, -(-ct.num_chunks // ranges)))
+
+
+def schedule(ct: CooTile, x_bytes: int, l2_bytes: int):
+    """``(piece, range_slots)`` of the kernel's two regimes (see
+    :data:`_SLOTS_PER_BLOCK`) for x of ``x_bytes`` on a card with
+    ``l2_bytes`` of L2."""
+    fill = ct.nnz / max(1, ct.num_chunks * ct.e_b)
+    if 2 * x_bytes > l2_bytes and fill >= _MIN_FILL_PAST_L2:
+        return _PIECE_PAST_L2, _SLOTS_PER_BLOCK_PAST_L2
+    return 0, _SLOTS_PER_BLOCK
+
+
+def work_shape(ct: CooTile, f: int, device, width: int | None = None,
+               range_slots: int | None = None, piece: int | None = None,
+               x_bytes: int | None = None):
+    """What the kernel launches for x of ``f`` features (``x_bytes``,
+    default f32) on ``device``: ``(width, chunks_per_block, ranges,
+    piece)``, ``width`` the features of one thread block (at most
+    ``width``, default :data:`FEAT_WIDTH`, and narrower where ``tile`` rows
+    of it would not fit in shared memory); ``range_slots`` and ``piece``
+    default to :func:`schedule`'s."""
+    w = feat_width(ct.tile, f, FEAT_WIDTH if width is None else width)
+    props = torch.cuda.get_device_properties(device)
+    auto_piece, auto_slots = schedule(
+        ct, ct.n_cols * f * 4 if x_bytes is None else x_bytes,
+        props.L2_cache_size)
+    per_block = _chunks_per_block(
+        ct, f, w, props.multi_processor_count,
+        auto_slots if range_slots is None else range_slots)
+    return (w, per_block, -(-ct.num_chunks // per_block),
+            auto_piece if piece is None else int(piece))
+
+
+def row_runs(ct: CooTile) -> int:
+    """Runs of live slots of one destination row inside a chunk: the
+    kernel's shared-memory adds a lane makes (one per run and feature),
+    against one per live slot without the runs."""
+    runs = 0
+    step = max(1, _PLAIN_SLOTS // ct.e_b)
+    for c0 in range(0, ct.num_chunks, step):
+        rows = ct.rows[c0:c0 + step].cpu().numpy()
+        live = ct.vals[c0:c0 + step].cpu().numpy() != 0
+        # a live slot opens a run unless the chunk's previous live slot
+        # has its row
+        chunk = np.broadcast_to(np.arange(rows.shape[0])[:, None], rows.shape)
+        r, ch = rows[live], chunk[live]
+        runs += int(len(r) and 1 + np.count_nonzero(
+            (r[1:] != r[:-1]) | (ch[1:] != ch[:-1])))
+    return runs
 
 
 def cootile_spmm_plain(ct: CooTile, x: torch.Tensor, *,
@@ -233,11 +297,16 @@ def cootile_spmm_plain(ct: CooTile, x: torch.Tensor, *,
 
 
 def cootile_spmm(ct: CooTile, x: torch.Tensor, *,
-                 precision: str = "highest") -> torch.Tensor:
+                 precision: str = "highest", width: int | None = None,
+                 range_slots: int | None = None,
+                 piece: int | None = None) -> torch.Tensor:
     """``A @ x`` for a :class:`CooTile`: ``x`` [m, F] -> [n, F] float32.
 
     A CPU tensor takes :func:`cootile_spmm_plain`; a CUDA tensor launches
-    the kernel (once) or raises.
+    the kernel (once) or raises. ``width`` caps the features of one thread
+    block (default :data:`FEAT_WIDTH`); ``range_slots`` (the table slots a
+    block walks) and ``piece`` (the 32-slot groups a warp walks before the
+    next warp's; 0: one piece a warp) default to :func:`schedule`'s.
     """
     if x.device.type == "cpu":
         return cootile_spmm_plain(ct, x, precision=precision)
@@ -249,6 +318,11 @@ def cootile_spmm(ct: CooTile, x: torch.Tensor, *,
     if ct.tile > _MAX_TILE:
         raise ValueError(f"cootile_spmm: tile {ct.tile} > {_MAX_TILE} does "
                          "not fit the kernel's shared accumulator")
+    if width not in (None, 32, 64, 128):
+        raise ValueError(f"cootile_spmm: width {width} is not 32, 64 or 128")
+    if ct.e_b < 32:
+        raise ValueError(f"cootile_spmm: e_b {ct.e_b} < 32: the kernel's "
+                         "32-slot groups touch at most two chunks")
     xk = _operand(x, precision).contiguous()
     for t, dt in ((ct.ctr, torch.int32), (ct.ctc, torch.int32),
                   (ct.row_ptr, torch.int32), (ct.rows, torch.int32),
@@ -260,13 +334,16 @@ def cootile_spmm(ct: CooTile, x: torch.Tensor, *,
     out = torch.zeros(ct.n_rows, f, dtype=torch.float32, device=xk.device)
     if f == 0 or ct.n_rows == 0 or ct.num_chunks == 0:
         return out
+    w, per_block, _, piece = work_shape(
+        ct, f, xk.device, width, range_slots, piece,
+        xk.numel() * xk.element_size())
     lib, _ = _build.library()
     err = lib.h2gcn_cootile_spmm(
         ct.ctr.data_ptr(), ct.ctc.data_ptr(), ct.row_ptr.data_ptr(),
         ct.rows.data_ptr(), ct.cols.data_ptr(), ct.vals.data_ptr(),
         xk.data_ptr(), int(xk.dtype == torch.bfloat16), out.data_ptr(),
-        ct.num_chunks, _chunks_per_block(ct, f, xk.device), ct.tile, ct.e_b,
-        ct.n_rows, f, torch.cuda.current_stream(xk.device).cuda_stream)
+        ct.num_chunks, per_block, ct.tile, ct.e_b, ct.n_rows, f, w, piece,
+        torch.cuda.current_stream(xk.device).cuda_stream)
     _build.check(lib, err, "cootile_spmm")
     cootile_spmm.launches += 1
     return out

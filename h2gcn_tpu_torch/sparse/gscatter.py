@@ -261,15 +261,13 @@ def build_schedule(chunk_ptr, budget: int):
     return item_ptr.astype(np.int32), np.asarray(stripes, np.int32)
 
 
-def _chunk_budget(gs: GScatter, seg: GScatterSegment, n_ftiles: int,
-                  device) -> int:
+def chunk_budget(n_chunks: int, e_b: int, sms: int, n_ftiles: int = 1) -> int:
     """Chunks one work item walks: :data:`_SLOTS_PER_ITEM` worth, or fewer
     where that would leave under :data:`_MIN_BLOCKS_PER_SM` thread blocks
-    per SM (one block per item and feature tile)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    on each of ``sms`` SMs (one block per item and feature tile)."""
     items = -(-_MIN_BLOCKS_PER_SM * sms // n_ftiles)
-    per_item = max(1, _SLOTS_PER_ITEM // gs.e_b)
-    return max(1, min(per_item, -(-int(seg.rows.shape[0]) // items)))
+    per_item = max(1, _SLOTS_PER_ITEM // e_b)
+    return max(1, min(per_item, -(-n_chunks // items)))
 
 
 def work_items(gs: GScatter, f: int, device, width: Optional[int] = None):
@@ -280,10 +278,12 @@ def work_items(gs: GScatter, f: int, device, width: Optional[int] = None):
     beside its tables."""
     w = feat_width(gs.tile, f, FEAT_WIDTH if width is None else width)
     n_ftiles = -(-f // w)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     launches = []
     for level in (gs,) + gs.overflow:
         for seg in level.segments:
-            budget = _chunk_budget(level, seg, n_ftiles, device)
+            budget = chunk_budget(int(seg.rows.shape[0]), level.e_b, sms,
+                                  n_ftiles)
             if budget not in seg.schedules:
                 item_ptr, item_stripe = build_schedule(
                     seg.chunk_ptr.cpu().numpy(), budget)

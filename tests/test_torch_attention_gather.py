@@ -34,6 +34,7 @@ from h2gcn_tpu_torch.models import GAT as tgat
 from h2gcn_tpu_torch.nn import load_jax_gat_params
 from h2gcn_tpu_torch.sparse import attention_coo as tac
 from h2gcn_tpu_torch.sparse import attention_gather as tag
+from h2gcn_tpu_torch.sparse.gscatter import chunk_budget
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-5)
@@ -373,3 +374,54 @@ def test_cli_trains_gat_on_the_at_scale_payloads_on_cpu(planetoid, tmp_path,
         seg = model(adj, t["features"], [], training=False)
     tol = FWD if precision == "highest" else BF16
     np.testing.assert_allclose(fused.numpy(), seg.numpy(), **tol)
+
+
+@pytest.mark.parametrize("sms", [4, 132])
+@pytest.mark.parametrize("orient", ["fwd", "bwd"])
+def test_combine_items_cover_every_chunk_once(orient, sms):
+    """The combine kernel's work items over a hub-skewed self-looped
+    support: every chunk of every segment once, in order, no item past the
+    budget, and the heaviest stripe cut into more than one item."""
+    support = chip_smoke.self_looped(chip_smoke.build_graph(3000, 20000,
+                                                            seed=7))
+    ga = tag.build_gatherattn(support)
+    gs = ga.fwd if orient == "fwd" else ga.bwd
+    items = tag.combine_items(gs, sms)
+    # the payload's own items are cut for the H100 off the card
+    assert [[t.tolist() for t in it] for it in tag.combine_items(gs)] == [
+        [t.tolist() for t in it]
+        for it in (ga.items_fwd if orient == "fwd" else ga.items_bwd)]
+    assert len(items) == len(gs.segments)
+    for seg, (item_ptr, item_stripe) in zip(gs.segments, items):
+        ptr = seg.chunk_ptr.numpy()
+        item_ptr, item_stripe = item_ptr.numpy(), item_stripe.numpy()
+        assert item_ptr.dtype == item_stripe.dtype == np.int32
+        assert item_ptr[0] == 0 and item_ptr[-1] == ptr[-1]
+        sizes = np.diff(item_ptr)
+        assert (sizes > 0).all()
+        budget = chunk_budget(int(ptr[-1]), gs.e_b, sms)
+        assert sizes.max() <= budget
+        # each item starts in the stripe it names
+        np.testing.assert_array_equal(
+            item_stripe, np.searchsorted(ptr, item_ptr[:-1], side="right") - 1)
+        # the hub stripe, past the budget, is cut into near-equal items
+        heavy = int(np.argmax(np.diff(ptr)))
+        assert np.diff(ptr)[heavy] > max(budget, 2 * np.median(np.diff(ptr)))
+        hub = sizes[item_stripe == heavy]
+        assert len(hub) == -(-np.diff(ptr)[heavy] // budget) > 1
+        assert hub.max() - hub.min() <= 1
+
+
+def test_combine_width_fits_shared_memory():
+    from h2gcn_tpu_torch.sparse.gscatter import _MAX_SHARED
+
+    # layer 1's augmented width, 8 heads of 8 + 1: three 32-column lanes
+    assert tag.combine_width(tag.GATHER_TILE, 72) == 96
+    assert tag.combine_width(128, 128) == 128
+    # 512 x 128 f32 is past the 227 KB a block can have
+    assert tag.combine_width(512, 128) == 96
+    assert tag.combine_width(512, 8) == 32 and tag.combine_width(512, 64) == 64
+    for f in (7, 8, 64, 72, 520):
+        w = tag.combine_width(tag.GATHER_TILE, f)
+        assert tag.GATHER_TILE * w * 4 <= _MAX_SHARED
+        assert w >= min(f, 96)

@@ -11,6 +11,8 @@ through ``backend="cootile"`` is held against the JAX ``spmm``, forward and
 gradient, at 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,3 +173,99 @@ def test_spmm_forward_and_gradient_match_jax(symmetric):
     if not symmetric:
         # the backward read the transpose tables: A^T g, not A g
         assert not np.allclose(xt.grad.numpy(), a @ g, atol=1e-3)
+
+
+def _skewed_a2(seed=5):
+    """The exact-2-hop matrix of a small hub-skewed graph (chip_smoke's
+    build_graph), symmetric-normalized."""
+    import chip_smoke
+    from h2gcn_tpu_torch.sparse import transforms
+
+    split = transforms.nhood_split(
+        chip_smoke.build_graph(n=2000, m_edges=12000, seed=seed), 2)
+    return transforms.normalize(split[2]).tocsr()
+
+
+def test_live_slots_run_in_row_order_within_chunks():
+    """The kernel sums a run of one destination row in registers: the
+    tables hold each chunk's live slots first and in non-decreasing row,
+    and row_runs counts the runs."""
+    a = _skewed_a2()
+    ctr, ctc, rows, cols, vals, _, e_b = tct.build_chunk_tables(
+        a, tile=256, e_b=None, kb=1)
+    live = vals != 0
+    runs = 0
+    for k in range(len(ctr)):
+        n_live = int(live[k].sum())
+        assert live[k, :n_live].all()  # padding only at the chunk's end
+        r = rows[k, :n_live]
+        assert (np.diff(r) >= 0).all()
+        runs += int(n_live and 1 + np.count_nonzero(np.diff(r)))
+    ct = tct.build_cootile(a, tile=256)
+    assert ct.e_b == e_b
+    assert tct.row_runs(ct) == runs
+    # a run holds several edges: the shared-memory adds they save
+    assert a.nnz / runs > 3
+
+
+def test_row_runs_count_any_slot_order():
+    """Slots shuffled inside their chunks: the sums stay, the runs grow
+    (the kernel flushes more often, and is right for any order)."""
+    a = _skewed_a2(6)
+    ct = tct.build_cootile(a, tile=128)
+    rng = np.random.default_rng(0)
+    perm = np.argsort(rng.random(tuple(ct.rows.shape)), axis=1)
+    shuffled = dataclasses.replace(ct, **{
+        k: torch.from_numpy(np.take_along_axis(getattr(ct, k).numpy(), perm,
+                                               axis=1))
+        for k in ("rows", "cols", "vals")})
+    assert tct.row_runs(shuffled) > tct.row_runs(ct)
+    x = torch.from_numpy(
+        rng.standard_normal((a.shape[1], 16)).astype(np.float32))
+    torch.testing.assert_close(tct.cootile_spmm_plain(shuffled, x),
+                               tct.cootile_spmm_plain(ct, x),
+                               rtol=0, atol=1e-5)
+
+
+def test_feat_width_fits_shared_memory():
+    from h2gcn_tpu_torch.sparse.gscatter import _MAX_SHARED, feat_width
+
+    # one thread block covers F = 128 at the default tile
+    w = feat_width(tct.DEFAULT_TILE, 128, tct.FEAT_WIDTH)
+    assert w == tct.FEAT_WIDTH and tct.DEFAULT_TILE * w * 4 <= _MAX_SHARED
+    # the largest tile still fits at 32 features a block
+    assert tct._MAX_TILE * 32 * 4 <= _MAX_SHARED
+    assert (tct._MAX_TILE + 1) * 32 * 4 > _MAX_SHARED
+    assert feat_width(tct._MAX_TILE, 128) == 32
+
+
+@pytest.mark.parametrize("f,width", [(128, 128), (64, 128), (128, 32)])
+def test_chunk_ranges_fill_the_card(f, width):
+    """One range per block and feature tile: a small matrix still gets
+    over 2 blocks on each SM (4 before the ranges round up), a hub tile row
+    spreads over many ranges, and no range walks past the slot budget."""
+    a = _rand(2000, 2000, 200_000, 11, rows=(0, 256))
+    ct = tct.build_cootile(a, tile=256, e_b=128)
+    per_block = tct._chunks_per_block(ct, f, width, 132)
+    ranges = -(-ct.num_chunks // per_block)
+    tiles = -(-f // width)
+    assert per_block * ct.e_b <= tct._SLOTS_PER_BLOCK
+    assert 2 * ranges * tiles > min(4 * 132, ct.num_chunks * tiles)
+    assert ct.heaviest_row_chunks() > 8 * per_block
+
+
+def test_schedule_takes_pieces_only_past_l2_over_full_tables():
+    """The kernel's two regimes: one piece a warp and 16,384-slot ranges
+    while x fits in half the L2 or the tables are mostly padding; pieces
+    of 4 groups and 65,536-slot ranges past it over tables >= 10% full."""
+    l2 = 50 * 2 ** 20
+    full = tct.build_cootile(_rand(2000, 2000, 200_000, 11), tile=256)
+    sparse = tct.build_cootile(_rand(3000, 3000, 900, 12), tile=256, e_b=128)
+    assert full.nnz == int((full.vals != 0).sum()) > 0
+    assert full.nnz / (full.num_chunks * full.e_b) >= tct._MIN_FILL_PAST_L2
+    assert sparse.nnz / (sparse.num_chunks * sparse.e_b) < tct._MIN_FILL_PAST_L2
+    near = (0, tct._SLOTS_PER_BLOCK)
+    past = (tct._PIECE_PAST_L2, tct._SLOTS_PER_BLOCK_PAST_L2)
+    assert tct.schedule(full, l2 // 2, l2) == near
+    assert tct.schedule(full, l2 // 2 + 1, l2) == past
+    assert tct.schedule(sparse, 4 * l2, l2) == near

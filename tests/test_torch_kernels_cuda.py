@@ -427,11 +427,12 @@ def test_gscatter_weighted_matches_plain(cuda, case, precision):
     wf[torch.rand(E, H, generator=gen, device=cuda) < 0.3] = 0  # dropout
     wl = torch.rand(E, H, generator=gen, device=cuda) if aug else None
     kw = dict(num_heads=H, wl=wl, precision=precision)
-    for gs, s2e, x_rows in ((ga.fwd, ga.slot2edge_fwd, ga.num_src),
-                            (ga.bwd, ga.slot2edge_bwd, n)):
+    for gs, s2e, items, x_rows in (
+            (ga.fwd, ga.slot2edge_fwd, ga.items_fwd, ga.num_src),
+            (ga.bwd, ga.slot2edge_bwd, ga.items_bwd, n)):
         x = torch.randn(x_rows, H * fw, generator=gen, device=cuda)
         before = tgat_.gscatter_weighted.launches
-        got = tgat_.gscatter_weighted(gs, s2e, wf, x, **kw)
+        got = tgat_.gscatter_weighted(gs, s2e, wf, x, items=items, **kw)
         torch.cuda.synchronize()
         assert tgat_.gscatter_weighted.launches == before + len(gs.segments)
         _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x, **kw),
@@ -482,6 +483,10 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="wf"):
         tgat_.gscatter_weighted(ga.fwd, ga.slot2edge_fwd,
                                 torch.zeros(ga.num_edges, 3, device=cuda), x,
+                                num_heads=2, items=ga.items_fwd)
+    with pytest.raises(ValueError, match="work items"):
+        tgat_.gscatter_weighted(ga.fwd, ga.slot2edge_fwd,
+                                torch.zeros(ga.num_edges, 2, device=cuda), x,
                                 num_heads=2)
 
 
@@ -524,7 +529,7 @@ def test_cootile_kernel_matches_plain(cuda, case, precision):
     a = _rand(n, m, nnz, 11, rows=rows)
     ct = tct.build_cootile(a, tile=tile, e_b=e_b, device=cuda)
     if case[0] == "hub":
-        per_block = tct._chunks_per_block(ct, f, cuda)
+        _, per_block, _, _ = tct.work_shape(ct, f, cuda)
         assert ct.heaviest_row_chunks() > 8 * per_block
     x = torch.randn(m, f, device=cuda)
     before = tct.cootile_spmm.launches
@@ -570,3 +575,135 @@ def test_cootile_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     ct_cpu = tct.build_cootile(a, tile=256)
     with pytest.raises(ValueError, match="tables"):
         tct.cootile_spmm(ct_cpu, torch.randn(500, 8, device=cuda))
+
+
+def _shuffle_chunks(ct, seed):
+    """``ct`` with each chunk's slots in a random order (rows, cols and
+    vals moved together): the same matrix, its row runs cut up."""
+    g = torch.Generator(device=ct.rows.device).manual_seed(seed)
+    perm = torch.argsort(torch.rand(tuple(ct.rows.shape), generator=g,
+                                    device=ct.rows.device), dim=1)
+    return dataclasses.replace(ct, **{
+        k: torch.gather(getattr(ct, k), 1, perm).contiguous()
+        for k in ("rows", "cols", "vals")})
+
+
+# (name, n, m, nnz, tile, rows): a hub tile row spread over many chunk
+# ranges (and its transpose, whose hub is a tile column); a rectangular
+# matrix whose slots are shuffled inside their chunks; tile 128 and 256
+COOTILE_WIDE_CASES = [("hub", 3000, 3000, 300_000, 256, (0, 256)),
+                      ("shuffled", 1500, 2600, 60_000, 128, None)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("f", [7, 64, 72, 128])
+@pytest.mark.parametrize("case", COOTILE_WIDE_CASES, ids=lambda c: c[0])
+def test_cootile_full_width_matches_plain(cuda, case, f, precision):
+    """All F in one thread block and row runs summed in registers: forward
+    and backward (the transpose tables) against the plain version at every
+    width the models and the odd widths take, in any slot order."""
+    name, n, m, nnz, tile, rows = case
+    a = _rand(n, m, nnz, 13, rows=rows)
+    sm = SparseMatrix.from_scipy(a, backend="cootile", precision=precision,
+                                 device=cuda)
+    sm = dataclasses.replace(
+        sm, coot=tct.build_cootile(a, tile=tile, device=cuda),
+        coot_t=tct.build_cootile(a.T.tocsr(), tile=tile, device=cuda))
+    if name == "shuffled":
+        runs = tct.row_runs(sm.coot)
+        sm = dataclasses.replace(sm, coot=_shuffle_chunks(sm.coot, 1),
+                                 coot_t=_shuffle_chunks(sm.coot_t, 2))
+        assert tct.row_runs(sm.coot) > runs
+    else:
+        w, per_block, _, _ = tct.work_shape(sm.coot, f, cuda)
+        assert w >= min(f, 32) and sm.coot.heaviest_row_chunks() > 8 * per_block
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(m, f, generator=gen, device=cuda, requires_grad=True)
+    g = torch.randn(n, f, generator=gen, device=cuda)
+    before = tct.cootile_spmm.launches
+    y = spmm(sm, x)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert tct.cootile_spmm.launches == before + 2
+    _close(y.detach(), tct.cootile_spmm_plain(sm.coot, x.detach(),
+                                              precision=precision), 1e-4)
+    _close(x.grad, tct.cootile_spmm_plain(sm.coot_t, g, precision=precision),
+           1e-4)
+
+
+@pytest.mark.parametrize("width", [32, 64, 128])
+def test_cootile_feature_tiles_agree(cuda, width):
+    """Every width the kernel is built for, over one or several feature
+    tiles of F = 200: the same sums."""
+    a = _rand(2000, 2000, 50_000, 14)
+    ct = tct.build_cootile(a, tile=256, device=cuda)
+    x = torch.randn(2000, 200, device=cuda)
+    got = tct.cootile_spmm(ct, x, width=width)
+    torch.cuda.synchronize()
+    _close(got, tct.cootile_spmm_plain(ct, x))
+
+
+def _skewed_support(n, seed):
+    """A hub-skewed self-looped support: the 10K graph's shape, smaller."""
+    a = _rand(n, n, 3 * n, seed)
+    rng = np.random.default_rng(seed)
+    hubs = rng.integers(0, n // 16, 4 * n)  # edges into the first stripe
+    b = sp.csr_matrix((np.ones(hubs.size, np.float32),
+                       (hubs, rng.integers(0, n, hubs.size))), shape=(n, n))
+    a = ((a + b + b.T + sp.eye(n, dtype=np.float32)) > 0).astype(np.float32)
+    return a.tocsr()
+
+
+# (H, fw, augmented): layer 1's forward, df1 and df2 (8 heads of 8 + 1)
+# and its dh (8 x 8); layer 2 (1 head of 7 + 1)
+COMBINE_CASES = [(8, 9, True), (8, 8, False), (1, 8, True)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("tile,warps", [(512, 32), (128, 16)])
+@pytest.mark.parametrize("case", COMBINE_CASES, ids=str)
+def test_combine_work_items_match_plain(cuda, case, tile, warps, precision):
+    """The combine over work items, the heaviest stripe split: the forward
+    and the three backward combines of a step against the plain version."""
+    H, fw, aug = case
+    n = 6000
+    a = _skewed_support(n, 15)
+    ga = tgat_.build_gatherattn(a, tile=tile, device=cuda)
+    ptr = ga.fwd.segments[0].chunk_ptr.cpu().numpy()
+    heavy = int(np.argmax(np.diff(ptr)))
+    assert int((ga.items_fwd[0][1].cpu() == heavy).sum()) > 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    E = ga.num_edges
+    wf = torch.rand(E, H, generator=gen, device=cuda)
+    wf[torch.rand(E, H, generator=gen, device=cuda) < 0.4] = 0  # dropout
+    wl = torch.rand(E, H, generator=gen, device=cuda) if aug else None
+    kw = dict(num_heads=H, wl=wl, precision=precision)
+    # forward / df1 over the forward tables, dh / df2 over the transpose
+    for gs, s2e, items in ((ga.fwd, ga.slot2edge_fwd, ga.items_fwd),
+                           (ga.bwd, ga.slot2edge_bwd, ga.items_bwd)):
+        x = torch.randn(n, H * fw, generator=gen, device=cuda)
+        before = tgat_.gscatter_weighted.launches
+        got = tgat_.gscatter_weighted(gs, s2e, wf, x, items=items,
+                                      warps=warps, **kw)
+        torch.cuda.synchronize()
+        assert tgat_.gscatter_weighted.launches == before + len(gs.segments)
+        _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x, **kw),
+               GAT_TOL)
+
+
+@pytest.mark.parametrize("piece,range_slots", [(1, 16384), (4, 65536),
+                                               (8, 4096)])
+@pytest.mark.parametrize("e_b", [48, 96, 128])
+def test_cootile_schedules_match_plain(cuda, e_b, piece, range_slots):
+    """Both of the kernel's schedules (and others) on a hub tile row, with
+    chunks whose size is not a multiple of 32, so a 32-slot group spans
+    two chunks: the same sums as the plain version."""
+    a = _rand(3000, 3000, 150_000, 16, rows=(0, 256)) + _rand(
+        3000, 3000, 30_000, 17)
+    ct = tct.build_cootile(a.tocsr(), tile=256, e_b=e_b, device=cuda)
+    x = torch.randn(3000, 64, device=cuda)
+    for precision in ("highest", "default"):
+        got = tct.cootile_spmm(ct, x, precision=precision, piece=piece,
+                               range_slots=range_slots)
+        torch.cuda.synchronize()
+        _close(got, tct.cootile_spmm_plain(ct, x, precision=precision))
