@@ -51,9 +51,15 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    with the combine's work items and its largest item's slots, and at the
    10K graph's layer 1 the combine's sweep (``combine_sweep`` lines: the
    gather tables' tile x the warps of a thread block, forward and dh);
-   then times one attention layer forward and forward + backward through
-   each of the BSR, COO-chunk and gather payloads on the same inputs (the
-   crossover the BSR budget waits for);
+   the COO-chunk forward and column pass walk work items over per-row
+   (per-column) edge lists: each of their cases also prints its items
+   (edges an item, warps a block, a row's cost, how many, the split rows
+   and their pieces, the workspace bytes) and its device time in a CUDA
+   graph beside the eager call's, and at the 10K graph's layer 1 their
+   sweep (``coo_sweep`` lines: edges an item x warps a block, then a row's
+   cost); then times one attention layer forward and forward + backward
+   through each of the BSR, COO-chunk and gather payloads on the same
+   inputs (the crossover the BSR budget waits for);
 8. (``gat_scale_cli``) trains GAT for 5 epochs through the CLI on the 10K
    graph (past the BSR budget) with ``--fused_attention``: ``auto`` with
    the published ``--attn_drop 0.6`` (routes to the gather payload and
@@ -84,6 +90,14 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
 11. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
+
+    python3 chip_smoke.py --ab DIR
+
+compares this tree with another commit unpacked at DIR (``git archive``),
+in turns DIR, this, this, DIR, twice: the COO-chunk kernels at the 10K
+graph's layer 1 and the ``--attn_impl coo`` GAT epoch at 10K, then one
+profiled epoch window (``--profile_dir``, summarized by
+``trace_summary``) of each.
 """
 
 from __future__ import annotations
@@ -206,6 +220,34 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters=20, reps=5):
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph and replayed ``reps`` times after a warm-up, so no host work sits
+    between the launches (a wrapper's Python costs tens of microseconds,
+    more than a small kernel takes)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def _bound(nbytes, ops, dtype):
@@ -842,6 +884,56 @@ def combine_sweep(support, combines, H, device):
         del ga
 
 
+# the forward's and the column pass's work-item sweep at the 10K graph's
+# layer 1: edges an item x items (warps) a thread block, then the cost of a
+# row in edges at the default budget and warps
+SWEEP_COO_BUDGETS = (32, 64, 128, 256)
+SWEEP_COO_WARPS = (4, 8, 16)
+SWEEP_COO_ROW_COSTS = (0, 8, 16, 32)
+# the kernels that walk per-row (per-column) lists in work items
+_COO_ITEMS = {"coo_fwd_stats": "fwd", "coo_bwd_col": "col"}
+
+
+def _coo_items_shape(it, H, F, warps=None):
+    """The work items ``it`` the forward or the column pass launches over:
+    edges an item, items a block, a row's cost, how many, the rows cut into
+    pieces and the workspace the pieces' partial states take at H heads of
+    F."""
+    from h2gcn_tpu_torch.sparse import attention_coo as coo
+
+    per_piece = H * (2 + F) if it.kind == "fwd" else H * (1 + F)
+    return {"budget": it.budget, "warps": warps or coo.ITEM_WARPS,
+            "row_cost": it.row_cost, "work_items": it.n_items,
+            "max_rows_per_item": int((it.items[:, 1]
+                                      - it.items[:, 0]).max()),
+            "split_rows": it.n_split,
+            "pieces": it.n_pieces,
+            "workspace_bytes": 4 * it.n_pieces * per_piece}
+
+
+def coo_sweep(ac, calls, H, F):
+    """The forward's and the column pass's device times over edges an item
+    x warps a block, then over the cost of a row (``coo_sweep`` lines,
+    "highest"): the sweep that set ``EDGE_BUDGET``, ``ITEM_WARPS`` and
+    ``ROW_COST``."""
+    from h2gcn_tpu_torch.sparse import attention_coo as coo
+
+    points = [(b, None, w) for b in SWEEP_COO_BUDGETS
+              for w in SWEEP_COO_WARPS]
+    points += [(None, c, None) for c in SWEEP_COO_ROW_COSTS
+               if c != coo.ROW_COST]
+    for kernel, kind in _COO_ITEMS.items():
+        run = calls[kernel][0]
+        for budget, cost, warps in points:
+            t0 = time.perf_counter()
+            it = coo.edge_items(ac, kind, budget, cost)
+            emit(dict(_coo_items_shape(it, H, F, warps), coo_sweep=kernel,
+                      graph="syn10k", H=H, F=F,
+                      device_ms=time_graph_ms(lambda: run(items=it,
+                                                          warps=warps)),
+                      s=time.perf_counter() - t0))
+
+
 def check_gat_scale_kernels(device):
     """Phase 7: the COO-chunk attention kernels and the weighted combine
     against their plain versions, timed, at the shapes GAT takes past the
@@ -922,8 +1014,19 @@ def check_gat_scale_kernels(device):
                             plain_ms=time_ms(plain, 5),
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None, s=time.perf_counter() - t0)
+                if kernel in _COO_ITEMS:
+                    # the wrapper's eager call above is bound by its host
+                    # work; in a CUDA graph the launches run back to back
+                    it = coo.edge_items(ac, _COO_ITEMS[kernel])
+                    case.update(_coo_items_shape(it, H, F),
+                                device_ms=time_graph_ms(run),
+                                default_device_ms=time_graph_ms(
+                                    lambda: run(precision="default")),
+                                s=time.perf_counter() - t0)
                 emit(case)
                 results[kernel].append(case)
+            if gname == "syn10k" and H == 8:
+                coo_sweep(ac, calls, H, F)
 
             # the four combines of a training step, on real edge weights
             t0 = time.perf_counter()
@@ -1101,6 +1204,96 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
     return {k: launches[k] for k in _GAT_ROUTES[route]}
 
 
+# One turn of the A/B comparison, run by ``python3 -c`` from the root of a
+# tree (this one, or another commit's unpacked beside it): the COO-chunk
+# kernels at the 10K graph's layer 1, "highest" (CUDA-event means of 20
+# eager calls), then GAT for EPOCHS epochs through the CLI with
+# ``--attn_impl coo``; with ``profile`` on argv, that CLI run is profiled
+# instead (epochs 3-5) and summarized. Uses only what both trees have.
+_AB_TURN = r"""
+import json, os, shutil, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as c
+from h2gcn_tpu_torch import run_experiments
+from h2gcn_tpu_torch.sparse import _build, attention as att
+from h2gcn_tpu_torch.sparse import attention_coo as coo
+
+dev = run_experiments.resolve_device("cuda")
+sup = c.self_looped(c.build_graph())
+ac = coo.build_attn_coo(sup, device=dev)
+n, n_pad = sup.shape[0], ac.n_tiles * ac.tile
+gen = torch.Generator(device=dev).manual_seed(2)
+H, F = 8, 8
+f1, f2 = (att.pad_rows(torch.randn(n, H, generator=gen, device=dev), n_pad)
+          for _ in range(2))
+h, g = (att.pad_rows(torch.randn(n, H * F, generator=gen, device=dev),
+                     n_pad) for _ in range(2))
+kw = dict(num_heads=H, feat=F)
+out, m, l = coo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
+d = att.head_dots(g, out, H, F)
+bwd = (ac, f1, f2, h, g, m, l, d)
+c.emit({"ab_kernels_ms": {
+    "coo_fwd_stats": c.time_ms(lambda: coo.coo_fwd_stats(ac, f1, f2, h, **kw),
+                               20),
+    "coo_bwd_row": c.time_ms(lambda: coo.coo_bwd_row(*bwd, **kw), 20),
+    "coo_bwd_col": c.time_ms(lambda: coo.coo_bwd_col(*bwd, **kw), 20)}})
+_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+data = tempfile.mkdtemp(prefix="ab_", dir=_build.BUILD_DIR)
+try:
+    c.write_planetoid(data, "syn10k", c.build_graph())
+    if "profile" in sys.argv:
+        trace = os.path.join(data, "trace")
+        run_experiments.main([
+            "GAT", "planetoid", "--dataset", "ind.syn10k", "--dataset_path",
+            data, "--fused_attention", "--attn_drop", "0", "--epochs",
+            str(c.EPOCHS), "--random_seed", "123", "--attn_impl", "coo",
+            "--checkpoint_dir", os.path.join(data, "ckpt"), "--profile_dir",
+            trace])
+        from h2gcn_tpu_torch import trace_summary
+        with open(os.path.join(trace, "trace.json")) as f:
+            c.emit({"ab_profile": trace_summary.summarize(json.load(f), 3)})
+    else:
+        c.run_gat_cli(data, "syn10k", dev, 0, route="coo", attn_impl="coo")
+finally:
+    shutil.rmtree(data, ignore_errors=True)
+"""
+
+
+def ab_main(parent: str) -> int:
+    """``python3 chip_smoke.py --ab DIR``: the COO-chunk kernels and the
+    ``--attn_impl coo`` GAT epoch at 10K in this tree and in the tree at
+    DIR (another commit, unpacked), in turns: DIR, this, this, DIR, twice
+    (the epoch is host-bound, and the host's speed drifts within a call);
+    then one profiled run of each. Prints each turn's lines tagged with its
+    tree; fails if a turn fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    turns = [(name, ()) for name in ("parent", "change", "change",
+                                     "parent") * 2]
+    turns += [("change", ("profile",)), ("parent", ("profile",))]
+    for i, (name, extra) in enumerate(turns):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _AB_TURN, *extra],
+                              cwd=trees[name], capture_output=True,
+                              text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"ab_turn": i, "tree": name,
+                                  **json.loads(line)}), flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            raise AssertionError(f"A/B turn {i} ({name}) failed")
+        emit({"ab_turn": i, "tree": name, "s": time.perf_counter() - t0})
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1239,7 +1432,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            # the kernels timed in a CUDA graph: that (device) time
+            "ms": head.get("device_ms", head["kernel_ms"]),
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
     emit({"phase": "total", "s": time.perf_counter() - t_start})
@@ -1251,4 +1446,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

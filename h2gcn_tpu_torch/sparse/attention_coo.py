@@ -16,8 +16,12 @@ with no edge-sized intermediate. Three kernels of
   same edges grouped by source tile).
 
 Each takes padded operands (``n_pad = n_tiles * tile`` rows) and returns
-padded outputs, launching once per table segment. A CPU tensor takes the
-plain version beside it; a CUDA tensor launches the kernel or raises.
+padded outputs. The row pass launches once per table segment; the forward
+and the column pass walk per-row and per-column edge lists sorted once from
+the same tables (:func:`build_edge_lists`), in work items that spread a hub
+row over many warps (:func:`build_edge_items`), one launch a call (and a
+small merge launch when a row is split). A CPU tensor takes the plain
+version beside it; a CUDA tensor launches the kernel or raises.
 :func:`gat_attention_coo` is the ``torch.autograd.Function`` over them.
 
 Precision: ``"highest"`` is f32 throughout; ``"default"`` rounds the head
@@ -44,6 +48,16 @@ MAX_CHUNKS = 64 * 1024  # the JAX package's segment size (its SMEM budget)
 _MAX_TILE = 1024    # csrc/gat_attention_coo.cu's limit on T
 _SMEM_BYTES = 227 * 1024  # shared memory one thread block may take
 _WARPS = 8          # csrc/gat_edge.cuh kWarps
+# The forward's and the column pass's work items: edges one item (one
+# warp) walks at most, items a thread block, and what a row costs an item
+# beside its edges, in edges (a warp walks its rows one after another,
+# each a chain of dependent loads); from chip_smoke.py's coo_sweep on the
+# H100 (PERF.md)
+EDGE_BUDGET = 128
+ITEM_WARPS = 4
+ROW_COST = 16
+_MAX_ITEM_WARPS = 16  # csrc/gat_attention_coo.cu kMaxItemWarps
+_MAX_ITEM_ROWS = 32   # rows one item walks at most (the kernels' limit)
 
 
 @dataclasses.dataclass
@@ -66,17 +80,54 @@ class AttnCooSegment:
 
 
 @dataclasses.dataclass
+class EdgeItems:
+    """The work items of the forward (over the per-row lists) or the column
+    pass (per-column lists): each item is one warp's walk. ``items[i] =
+    (lo, hi, e_lo, e_hi)``: rows ``lo .. hi``, clipped to list positions
+    ``e_lo .. e_hi``; either a run of whole rows or one piece of a split
+    row, whose partial state goes to workspace slot ``slot[i]`` (-1 for
+    whole rows). Split row ``split_rows[s]`` has slots ``split_ptr[s] ..
+    split_ptr[s + 1]``."""
+
+    items: torch.Tensor       # [I, 4] int32
+    slot: torch.Tensor        # [I] int32
+    split_rows: torch.Tensor  # [S] int32
+    split_ptr: torch.Tensor   # [S + 1] int32
+    kind: str                 # "fwd" (per-row lists) or "col"
+    budget: int
+    row_cost: int
+    n_pieces: int             # workspace slots: split_ptr[-1]
+
+    @property
+    def n_items(self) -> int:
+        return int(self.items.shape[0])
+
+    @property
+    def n_split(self) -> int:
+        return int(self.split_rows.shape[0])
+
+
+@dataclasses.dataclass
 class AttnCoo:
     """Fused-attention payload: the chunk tables in both visit orders.
     ``fwd`` groups edges by destination tile (forward and row pass),
     ``bwd`` the same edges by source tile (column pass), with coordinates
-    in the original (destination, source) orientation."""
+    in the original (destination, source) orientation. ``fwd_ptr`` /
+    ``fwd_src`` list each destination row's sources and ``col_ptr`` /
+    ``col_dst`` each source column's destinations, sorted once from those
+    tables; ``items`` caches their work items by (``"fwd"`` or ``"col"``,
+    budget, row cost)."""
 
     fwd: Tuple[AttnCooSegment, ...]
     bwd: Tuple[AttnCooSegment, ...]
     tile: int = 256
     e_b: int = 128
     n: int = 0
+    fwd_ptr: Optional[torch.Tensor] = None  # [n_pad + 1] int32
+    fwd_src: Optional[torch.Tensor] = None  # [E] int32
+    col_ptr: Optional[torch.Tensor] = None  # [n_pad + 1] int32
+    col_dst: Optional[torch.Tensor] = None  # [E] int32
+    items: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_tiles(self) -> int:
@@ -153,7 +204,92 @@ def build_attn_coo(csr, tile: int = 256, e_b: Optional[int] = 128,
         csr.T.tocsr(), tile, e_b, kb=KB_COL)
     bwd = _segment(ttr, ttc, trows, tcols, tvals, KB_COL, swap_coords=True,
                    max_chunks=max_chunks, device=device)
-    return AttnCoo(fwd=fwd, bwd=bwd, tile=tile, e_b=e_b, n=n)
+    ac = AttnCoo(fwd=fwd, bwd=bwd, tile=tile, e_b=e_b, n=n)
+    # the forward's and the column pass's edge lists, from the tables
+    n_pad = ac.n_tiles * tile
+    dest, src = (t.cpu().numpy() for t in coo_edges(fwd, tile))
+    fwd_ptr, fwd_src = build_edge_lists(dest, src, n_pad)
+    dest, src = (t.cpu().numpy() for t in coo_edges(bwd, tile,
+                                                    transpose=True))
+    col_ptr, col_dst = build_edge_lists(src, dest, n_pad)
+    ac.fwd_ptr, ac.fwd_src, ac.col_ptr, ac.col_dst = (
+        torch.from_numpy(a).to(device)
+        for a in (fwd_ptr, fwd_src, col_ptr, col_dst))
+    for kind in ("fwd", "col"):
+        edge_items(ac, kind)
+    return ac
+
+
+def build_edge_lists(key, other, n_rows: int):
+    """Edges grouped by ``key`` (numpy only): ``(ptr [n_rows + 1], other
+    [E])``, both int32; the edges of key ``r`` have their other ends at
+    ``other[ptr[r]:ptr[r + 1]]``, in the order given (a stable sort)."""
+    key = np.asarray(key, np.int64)
+    order = np.argsort(key, kind="stable")
+    ptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=n_rows), out=ptr[1:])
+    return (ptr.astype(np.int32),
+            np.asarray(other, np.int64)[order].astype(np.int32))
+
+
+def build_edge_items(ptr, budget: int, row_cost: int = ROW_COST,
+                     max_rows: int = _MAX_ITEM_ROWS):
+    """The kernels' work items over per-row lists ``ptr`` (numpy only).
+
+    Whole rows are packed into one item while their edges plus
+    ``row_cost`` a row stay within ``budget`` (at least one row an item, at
+    most ``max_rows``); a row of more than ``budget`` edges is cut into
+    ``ceil(deg / budget)`` near-equal pieces of its own. Every row
+    ``0 .. len(ptr) - 1``, with or without edges, lies in exactly one item
+    or is split. Returns ``(items [I, 4], slot [I], split_rows [S],
+    split_ptr [S + 1])``, all int32, as :class:`EdgeItems` holds them."""
+    ptr = np.asarray(ptr, np.int64)
+    n = len(ptr) - 1
+    deg = np.diff(ptr)
+    budget = max(1, int(budget))
+    big = np.flatnonzero(deg > budget)
+    cost = ptr + int(row_cost) * np.arange(n + 1)  # cumulative item cost
+    items, slot, split_rows, split_ptr = [], [], [], [0]
+    r = 0
+    while r < n:
+        if deg[r] > budget:
+            k = -(-int(deg[r]) // budget)
+            cuts = ptr[r] + (np.arange(k + 1) * deg[r]) // k
+            items.extend((r, r + 1, cuts[p], cuts[p + 1]) for p in range(k))
+            slot.extend(range(split_ptr[-1], split_ptr[-1] + k))
+            split_rows.append(r)
+            split_ptr.append(split_ptr[-1] + k)
+            r += 1
+            continue
+        nxt = np.searchsorted(big, r)
+        hi = min(n, r + max_rows, int(big[nxt]) if nxt < len(big) else n)
+        fit = int(np.searchsorted(cost, cost[r] + budget, side="right")) - 1
+        r1 = max(r + 1, min(fit, hi))
+        items.append((r, r1, ptr[r], ptr[r1]))
+        slot.append(-1)
+        r = r1
+    return (np.asarray(items, np.int32).reshape(-1, 4),
+            np.asarray(slot, np.int32), np.asarray(split_rows, np.int32),
+            np.asarray(split_ptr, np.int32))
+
+
+def edge_items(ac: AttnCoo, kind: str, budget: Optional[int] = None,
+               row_cost: Optional[int] = None) -> EdgeItems:
+    """The work items of the forward (``kind="fwd"``) or the column pass
+    (``"col"``) at ``budget`` edges an item and ``row_cost``
+    (:data:`EDGE_BUDGET` and :data:`ROW_COST` by default), built once and
+    kept on ``ac``."""
+    budget = EDGE_BUDGET if budget is None else int(budget)
+    row_cost = ROW_COST if row_cost is None else int(row_cost)
+    key = (kind, budget, row_cost)
+    if key not in ac.items:
+        ptr = ac.fwd_ptr if kind == "fwd" else ac.col_ptr
+        parts = build_edge_items(ptr.cpu().numpy(), budget, row_cost)
+        ac.items[key] = EdgeItems(
+            *(torch.from_numpy(a).to(ptr.device) for a in parts),
+            kind=kind, budget=budget, row_cost=row_cost,
+            n_pieces=int(parts[3][-1]))
+    return ac.items[key]
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +416,8 @@ def _check(name, ac: AttnCoo, num_heads, feat, precision, **tensors):
                              f"[{n_pad}, {widths[key]}], not {t.dtype} "
                              f"{tuple(t.shape)}")
     tables = [t for seg in ac.fwd + ac.bwd for t in (
-        seg.grp, seg.oth, seg.rows, seg.cols, seg.vals, seg.tile_ptr)]
+        seg.grp, seg.oth, seg.rows, seg.cols, seg.vals, seg.tile_ptr)] + [
+            ac.fwd_ptr, ac.fwd_src, ac.col_ptr, ac.col_dst]
     for t in [*tensors.values(), *tables]:
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous and on "
@@ -302,9 +439,9 @@ def _list_place(seg: AttnCooSegment, scratch_floats: int, tile: int,
 
 def _launch(wrapper, fn, segs, ac, num_heads, feat, slope, precision,
             scratch, tensors):
-    """Launch ``fn`` once per segment of ``segs`` on ``tensors`` (data
-    pointers, in the launcher's order), raising on a launch error and
-    counting each launch on ``wrapper``."""
+    """Launch ``fn`` (the row pass) once per segment of ``segs`` on
+    ``tensors`` (data pointers, in the launcher's order), raising on a
+    launch error and counting each launch on ``wrapper``."""
     lib, _ = _build.library()
     ref = tensors[0]
     for seg in segs:
@@ -320,11 +457,49 @@ def _launch(wrapper, fn, segs, ac, num_heads, feat, slope, precision,
         wrapper.launches += 1
 
 
+def _launch_items(wrapper, fn, ac, kind, num_heads, feat, slope, precision,
+                  items, warps, tensors, ws_floats):
+    """Launch ``fn`` over the work items of ``kind`` (``items``, or
+    :func:`edge_items`' default) with ``warps`` items a block on
+    ``tensors`` (data pointers, in the launcher's order) and a workspace of
+    ``ws_floats`` a split row's piece; raises on a launch error and counts
+    the launch on ``wrapper`` (its merge launch, when a row is split, is
+    part of it)."""
+    name = wrapper.__name__
+    warps = ITEM_WARPS if warps is None else int(warps)
+    if not 1 <= warps <= _MAX_ITEM_WARPS:
+        raise ValueError(f"{name}: warps {warps} is outside "
+                         f"1..{_MAX_ITEM_WARPS}")
+    it = edge_items(ac, kind) if items is None else items
+    if it.kind != kind:
+        raise ValueError(f"{name}: needs the {kind!r} work items, not "
+                         f"{it.kind!r}")
+    ptr, other = ((ac.fwd_ptr, ac.fwd_src) if kind == "fwd"
+                  else (ac.col_ptr, ac.col_dst))
+    ref = tensors[0]
+    ws = (torch.empty(it.n_pieces * ws_floats, dtype=torch.float32,
+                      device=ref.device) if it.n_pieces else None)
+    lib, _ = _build.library()
+    err = getattr(lib, fn)(
+        it.items.data_ptr(), it.slot.data_ptr(), it.split_rows.data_ptr(),
+        it.split_ptr.data_ptr(), ptr.data_ptr(), other.data_ptr(),
+        *(t.data_ptr() for t in tensors),
+        None if ws is None else ws.data_ptr(), it.n_items, it.n_split,
+        num_heads, feat, slope, int(precision == "default"), warps,
+        _stream(ref))
+    _build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+
+
 def coo_fwd_stats(ac: AttnCoo, f1p, f2p, hp, *, num_heads: int, feat: int,
-                  slope: float = 0.2, precision: str = "highest"):
+                  slope: float = 0.2, precision: str = "highest",
+                  items: Optional[EdgeItems] = None,
+                  warps: Optional[int] = None):
     """Forward with stats on padded operands -> ``(out, m, l)``. A CPU
     tensor takes :func:`coo_fwd_stats_plain`; a CUDA tensor launches
-    ``h2gcn_gat_coo_fwd`` (once per segment) or raises."""
+    ``h2gcn_gat_coo_fwd`` or raises. ``items`` (``edge_items(ac, "fwd",
+    ...)``) and ``warps`` (items a thread block) default to the payload's
+    items at :data:`EDGE_BUDGET` and :data:`ITEM_WARPS`."""
     kw = dict(num_heads=num_heads, feat=feat, slope=slope,
               precision=precision)
     if not _on_cuda("coo_fwd_stats", hp):
@@ -335,8 +510,10 @@ def coo_fwd_stats(ac: AttnCoo, f1p, f2p, hp, *, num_heads: int, feat: int,
                       device=hp.device)
     m = torch.empty(n_pad, num_heads, dtype=torch.float32, device=hp.device)
     l = torch.empty_like(m)
-    _launch(coo_fwd_stats, "h2gcn_gat_coo_fwd", ac.fwd, ac,
-            scratch=2 * num_heads, tensors=(f1p, f2p, hp, out, m, l), **kw)
+    _launch_items(coo_fwd_stats, "h2gcn_gat_coo_fwd", ac, "fwd",
+                  items=items, warps=warps,
+                  tensors=(f1p, f2p, hp, out, m, l),
+                  ws_floats=num_heads * (2 + feat), **kw)
     return out, m, l
 
 
@@ -360,10 +537,14 @@ def coo_bwd_row(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
 
 
 def coo_bwd_col(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
-                feat: int, slope: float = 0.2, precision: str = "highest"):
-    """Column backward pass on padded operands over the transpose tables
-    -> ``(dh, df2)``. A CPU tensor takes :func:`coo_bwd_col_plain`; a CUDA
-    tensor launches ``h2gcn_gat_coo_bwd_col`` or raises."""
+                feat: int, slope: float = 0.2, precision: str = "highest",
+                items: Optional[EdgeItems] = None,
+                warps: Optional[int] = None):
+    """Column backward pass on padded operands -> ``(dh, df2)``. A CPU
+    tensor takes :func:`coo_bwd_col_plain` (over the transpose tables); a
+    CUDA tensor launches ``h2gcn_gat_coo_bwd_col`` over the per-column
+    lists or raises. ``items`` (``edge_items(ac, "col", ...)``) and
+    ``warps`` as for :func:`coo_fwd_stats`."""
     kw = dict(num_heads=num_heads, feat=feat, slope=slope,
               precision=precision)
     if not _on_cuda("coo_bwd_col", hp):
@@ -374,9 +555,10 @@ def coo_bwd_col(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
                      device=hp.device)
     df2 = torch.empty(n_pad, num_heads, dtype=torch.float32,
                       device=hp.device)
-    _launch(coo_bwd_col, "h2gcn_gat_coo_bwd_col", ac.bwd, ac,
-            scratch=num_heads + num_heads * feat,
-            tensors=(f1p, f2p, hp, gp, m, l, d, dh, df2), **kw)
+    _launch_items(coo_bwd_col, "h2gcn_gat_coo_bwd_col", ac, "col",
+                  items=items, warps=warps,
+                  tensors=(f1p, f2p, hp, gp, m, l, d, dh, df2),
+                  ws_floats=num_heads * (1 + feat), **kw)
     return dh, df2
 
 

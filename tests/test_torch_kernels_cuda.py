@@ -354,10 +354,11 @@ def test_coo_kernels_match_plain(cuda, case, precision):
     df1 = tcoo.coo_bwd_row(ac, f1, f2, h, g, *ref[1:], d, **kw)
     dh, df2 = tcoo.coo_bwd_col(ac, f1, f2, h, g, *ref[1:], d, **kw)
     torch.cuda.synchronize()
+    # the row pass launches once a segment; the forward and the column
+    # pass once a call over the per-row and per-column lists
     assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
             tcoo.coo_bwd_col.launches) == (
-                launches[0] + len(ac.fwd), launches[1] + len(ac.fwd),
-                launches[2] + len(ac.bwd))
+                launches[0] + 1, launches[1] + len(ac.fwd), launches[2] + 1)
     if max_chunks:
         assert len(ac.fwd) > 1 and len(ac.bwd) > 1
     _close(out, ref[0], tol)
@@ -407,6 +408,107 @@ def test_gat_attention_coo_backward_launches_its_kernels(cuda):
     _close(out.detach().cpu(), outc.detach(), GAT_TOL)
     for x, c in zip(xs, xc):
         _close(x.grad.cpu(), c.grad, GAT_TOL)
+
+
+def _star_support(n, hub_edges, seed):
+    """A self-looped support whose node 0 links to ``hub_edges`` nodes both
+    ways (a row and a column cut into many pieces), over a sparse random
+    rest, with rows and columns 40-79 left without an edge."""
+    rng = np.random.default_rng(seed)
+    nb = rng.choice(np.arange(80, n), hub_edges, replace=False)
+    r = np.concatenate([np.zeros(hub_edges, np.int64), nb])
+    c = np.concatenate([nb, np.zeros(hub_edges, np.int64)])
+    star = sp.csr_matrix((np.ones(r.size, np.float32), (r, c)), shape=(n, n))
+    a = (_rand(n, n, 4 * n, seed) + star
+         + sp.eye(n, dtype=np.float32)).tolil()
+    a[40:80, :] = 0
+    a[:, 40:80] = 0
+    a = (a.tocsr() > 0).astype(np.float32)
+    a.eliminate_zeros()
+    return a.tocsr()
+
+
+# (graph, n, tile, H, F, budget, warps): a star row of >= 5,000 edges; rows
+# without an edge; n not a multiple of the tile; layer 2 (1 head of 7) and
+# the limit H * F = 512; the 10K graph's skew at a reduced n; other budgets
+# and warps a block
+COO_ITEM_CASES = [("star", 9000, 256, 8, 8, None, None),
+                  ("star", 9000, 256, 1, 7, None, None),
+                  ("star", 9000, 256, 8, 64, 32, 4),
+                  ("star", 6100, 128, 3, 5, 256, 16),
+                  ("skewed", 4000, 256, 8, 8, 64, None),
+                  ("skewed", 4000, 256, 1, 7, 32, 16),
+                  ("skewed", 4000, 256, 16, 32, 64, 8),
+                  ("skewed", 3001, 256, 2, 1, 16, 2)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", COO_ITEM_CASES, ids=str)
+def test_coo_work_items_match_plain(cuda, case, precision):
+    """The forward and the column pass over their work items, hub rows
+    split and merged, against the plain versions; the row pass beside them
+    on the same payload."""
+    graph, n, T, H, F, budget, warps = case
+    a = (_star_support(n, 5200, 21) if graph == "star"
+         else _skewed_support(n, 22))
+    ac = tcoo.build_attn_coo(a, tile=T, device=cuda)
+    n_pad = ac.n_tiles * T
+    assert n % T or graph == "star"
+    items = {kind: tcoo.edge_items(ac, kind, budget) for kind in ("fwd",
+                                                                  "col")}
+    for it in items.values():
+        assert it.n_split > 0
+        if graph == "star":
+            assert it.n_pieces - it.n_split >= 5000 // it.budget
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    kw = dict(num_heads=H, feat=F, precision=precision)
+    tol = GAT_TOL if precision == "highest" else BF16_TOL
+    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_col.launches)
+    out, m, l = tcoo.coo_fwd_stats(ac, f1, f2, h, items=items["fwd"],
+                                   warps=warps, **kw)
+    ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
+    d = tatt.head_dots(g, ref[0], H, F)
+    bwd = (ac, f1, f2, h, g, *ref[1:], d)
+    dh, df2 = tcoo.coo_bwd_col(*bwd, items=items["col"], warps=warps, **kw)
+    df1 = tcoo.coo_bwd_row(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_col.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    _close(out, ref[0], tol)
+    for got, want in zip((m, l), ref[1:]):  # f32 statistics either way
+        _close(got, want, GAT_TOL)
+    for got, want in zip((dh, df2), tcoo.coo_bwd_col_plain(*bwd, **kw)):
+        _close(got, want, tol)
+    _close(df1, tcoo.coo_bwd_row_plain(*bwd, **kw), tol)
+    # rows without an edge (and the padding rows) keep the sentinel state
+    empty = torch.ones(n_pad, dtype=torch.bool, device=cuda)
+    empty[:n] = torch.from_numpy(np.diff(a.indptr) == 0).to(cuda)
+    assert empty[n:].all() and (graph != "star" or empty[40:80].all())
+    assert (m[empty] == tatt.NEG_INF).all() and (l[empty] == 0).all()
+    assert (out[empty] == 0).all()
+    no_src = torch.ones(n_pad, dtype=torch.bool, device=cuda)
+    no_src[:n] = torch.from_numpy(np.diff(a.tocsc().indptr) == 0).to(cuda)
+    assert (dh[no_src] == 0).all() and (df2[no_src] == 0).all()
+
+
+def test_coo_work_items_refuse_what_the_kernels_do_not_take(cuda):
+    a = _mask(300, 128, 9)
+    ac = tcoo.build_attn_coo(a, tile=128, device=cuda)
+    n_pad = ac.n_tiles * 128
+    f = torch.zeros(n_pad, 2, device=cuda)
+    h = torch.zeros(n_pad, 16, device=cuda)
+    with pytest.raises(ValueError, match="warps"):
+        tcoo.coo_fwd_stats(ac, f, f, h, num_heads=2, feat=8, warps=17)
+    with pytest.raises(ValueError, match="warps"):
+        tcoo.coo_bwd_col(ac, f, f, h, h, f, f, f, num_heads=2, feat=8,
+                         warps=0)
+    with pytest.raises(ValueError, match="'col' work items"):
+        tcoo.coo_bwd_col(ac, f, f, h, h, f, f, f, num_heads=2, feat=8,
+                         items=tcoo.edge_items(ac, "fwd"))
 
 
 # (n, m, H, fw, augmented, hub rows); m != n is a rectangular support
