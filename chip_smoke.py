@@ -33,7 +33,10 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    Cora-shaped synthetic graph (2,708 nodes, 5,429 edges, self-looped,
    256-blocks) at both GAT layers' widths (8 heads of 8, 1 head of 7), and
    as timing shapes on its hub-free twin and on the 10K graph forced to
-   256-blocks;
+   256-blocks; the column pass walks per-column edge lists built once from
+   the mask: each graph's line prints the lists' build seconds, and each
+   gat_bwd_col case its work items and its device time in a CUDA graph
+   beside the eager call's;
 6. trains GAT (Cora's published configuration) for 5 epochs through the
    CLI on the Cora-shaped graph written as planetoid files, with
    ``--fused_attention --attn_drop 0`` (training and eval launch all three
@@ -51,13 +54,14 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    with the combine's work items and its largest item's slots, and at the
    10K graph's layer 1 the combine's sweep (``combine_sweep`` lines: the
    gather tables' tile x the warps of a thread block, forward and dh);
-   the COO-chunk forward and column pass walk work items over per-row
-   (per-column) edge lists: each of their cases also prints its items
-   (edges an item, warps a block, a row's cost, how many, the split rows
-   and their pieces, the workspace bytes) and its device time in a CUDA
-   graph beside the eager call's, and at the 10K graph's layer 1 their
-   sweep (``coo_sweep`` lines: edges an item x warps a block, then a row's
-   cost); then times one attention layer forward and forward + backward
+   the three COO-chunk kernels walk work items over per-row (forward, row
+   pass) and per-column (column pass) edge lists: each of their cases also
+   prints its items (edges an item, warps a block, a row's cost, how many,
+   the split rows and their pieces, the workspace bytes) and its device
+   time in a CUDA graph beside the eager call's, and at the 10K graph's
+   layer 1 their sweep (``coo_sweep`` lines: edges an item x warps a block,
+   then a row's cost); then times one attention layer forward and forward
+   + backward
    through each of the BSR, COO-chunk and gather payloads on the same
    inputs (the crossover the BSR budget waits for);
 8. (``gat_scale_cli``) trains GAT for 5 epochs through the CLI on the 10K
@@ -95,9 +99,9 @@ Every phase line carries its seconds (``"s"``). Any failure raises.
 
 compares this tree with another commit unpacked at DIR (``git archive``),
 in turns DIR, this, this, DIR, twice: the COO-chunk kernels at the 10K
-graph's layer 1 and the ``--attn_impl coo`` GAT epoch at 10K, then one
-profiled epoch window (``--profile_dir``, summarized by
-``trace_summary``) of each.
+graph's layer 1, the BSR column pass at the Cora-shaped graph's layer 1
+and the ``--attn_impl coo`` GAT epoch at 10K, then one profiled epoch
+window (``--profile_dir``, summarized by ``trace_summary``) of each.
 """
 
 from __future__ import annotations
@@ -762,10 +766,18 @@ def check_gat_kernels(device):
                                      device=device)
         bsr, n, E = sm.bsr, support.shape[0], support.nnz
         n_pad = bsr.n_row_blocks * bsr.block_size
+        # the column pass's per-column lists and items, built once from the
+        # mask on the card
+        t1 = time.perf_counter()
+        col_items = att.mask_col_items(bsr)
+        torch.cuda.synchronize()
+        list_s = time.perf_counter() - t1
         emit({"graph": gname, "n": n, "support_nnz": E, "block_size": 256,
               "max_row_nnz": int(np.diff(support.indptr).max()),
               "blocks": bsr.num_blocks,
               "mask_bytes": bsr.blocks.numel() * 4,
+              "col_list_build_s": list_s,
+              "col_list_edges": int(att.mask_col_lists(bsr)[1].numel()),
               "s": time.perf_counter() - t0})
         for H, F in GAT_WIDTHS:
             t0 = time.perf_counter()
@@ -803,6 +815,13 @@ def check_gat_kernels(device):
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None,
                             s=time.perf_counter() - t0)
+                if kernel == "gat_bwd_col":
+                    # the item kernel over the mask's lists; its eager call
+                    # is bound by the wrapper's host work
+                    case.update(_coo_items_shape(kernel, col_items, H, F),
+                                device_ms=time_graph_ms(run),
+                                list_build_s=list_s,
+                                s=time.perf_counter() - t0)
                 emit(case)
                 results[kernel].append(case)
     return results
@@ -890,18 +909,24 @@ def combine_sweep(support, combines, H, device):
 SWEEP_COO_BUDGETS = (32, 64, 128, 256)
 SWEEP_COO_WARPS = (4, 8, 16)
 SWEEP_COO_ROW_COSTS = (0, 8, 16, 32)
-# the kernels that walk per-row (per-column) lists in work items
-_COO_ITEMS = {"coo_fwd_stats": "fwd", "coo_bwd_col": "col"}
+# the COO-chunk kernels, each walking per-row (per-column) lists in work
+# items of this kind
+_COO_ITEMS = {"coo_fwd_stats": "fwd", "coo_bwd_row": "fwd",
+              "coo_bwd_col": "col"}
+# the floats a split row's piece writes to the workspace at H heads of F
+_PIECE_FLOATS = {"coo_fwd_stats": lambda H, F: H * (2 + F),
+                 "coo_bwd_row": lambda H, F: H,
+                 "coo_bwd_col": lambda H, F: H * (1 + F),
+                 "gat_bwd_col": lambda H, F: H * (1 + F)}
 
 
-def _coo_items_shape(it, H, F, warps=None):
-    """The work items ``it`` the forward or the column pass launches over:
-    edges an item, items a block, a row's cost, how many, the rows cut into
-    pieces and the workspace the pieces' partial states take at H heads of
-    F."""
+def _coo_items_shape(kernel, it, H, F, warps=None):
+    """The work items ``it`` that ``kernel`` launches over: edges an item,
+    items a block, a row's cost, how many, the rows cut into pieces and the
+    workspace the pieces' partial states take at H heads of F."""
     from h2gcn_tpu_torch.sparse import attention_coo as coo
 
-    per_piece = H * (2 + F) if it.kind == "fwd" else H * (1 + F)
+    per_piece = _PIECE_FLOATS[kernel](H, F)
     return {"budget": it.budget, "warps": warps or coo.ITEM_WARPS,
             "row_cost": it.row_cost, "work_items": it.n_items,
             "max_rows_per_item": int((it.items[:, 1]
@@ -912,10 +937,9 @@ def _coo_items_shape(it, H, F, warps=None):
 
 
 def coo_sweep(ac, calls, H, F):
-    """The forward's and the column pass's device times over edges an item
-    x warps a block, then over the cost of a row (``coo_sweep`` lines,
-    "highest"): the sweep that set ``EDGE_BUDGET``, ``ITEM_WARPS`` and
-    ``ROW_COST``."""
+    """The COO-chunk kernels' device times over edges an item x warps a
+    block, then over the cost of a row (``coo_sweep`` lines, "highest"):
+    the sweep that set ``EDGE_BUDGET``, ``ITEM_WARPS`` and ``ROW_COST``."""
     from h2gcn_tpu_torch.sparse import attention_coo as coo
 
     points = [(b, None, w) for b in SWEEP_COO_BUDGETS
@@ -927,7 +951,8 @@ def coo_sweep(ac, calls, H, F):
         for budget, cost, warps in points:
             t0 = time.perf_counter()
             it = coo.edge_items(ac, kind, budget, cost)
-            emit(dict(_coo_items_shape(it, H, F, warps), coo_sweep=kernel,
+            emit(dict(_coo_items_shape(kernel, it, H, F, warps),
+                      coo_sweep=kernel,
                       graph="syn10k", H=H, F=F,
                       device_ms=time_graph_ms(lambda: run(items=it,
                                                           warps=warps)),
@@ -964,7 +989,6 @@ def check_gat_scale_kernels(device):
         n_pad = ac.n_tiles * ac.tile
         emit({"graph": gname, "n": n, "support_nnz": E,
               "coo_chunks": ac.num_chunks,
-              "coo_max_tile_slots": max(sg.max_tile_slots for sg in ac.fwd),
               "gather_slots": ga.total_slots_fwd,
               "gather_items": [len(ga.items_fwd[0][1]),
                                len(ga.items_bwd[0][1])],
@@ -1018,7 +1042,7 @@ def check_gat_scale_kernels(device):
                     # the wrapper's eager call above is bound by its host
                     # work; in a CUDA graph the launches run back to back
                     it = coo.edge_items(ac, _COO_ITEMS[kernel])
-                    case.update(_coo_items_shape(it, H, F),
+                    case.update(_coo_items_shape(kernel, it, H, F),
                                 device_ms=time_graph_ms(run),
                                 default_device_ms=time_graph_ms(
                                     lambda: run(precision="default")),
@@ -1207,7 +1231,9 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
 # One turn of the A/B comparison, run by ``python3 -c`` from the root of a
 # tree (this one, or another commit's unpacked beside it): the COO-chunk
 # kernels at the 10K graph's layer 1, "highest" (CUDA-event means of 20
-# eager calls), then GAT for EPOCHS epochs through the CLI with
+# eager calls), and B5's column pass at the Cora-shaped graph's layer 1
+# (also as device time in a CUDA graph), then GAT for EPOCHS epochs through
+# the CLI with
 # ``--attn_impl coo``; with ``profile`` on argv, that CLI run is profiled
 # instead (epochs 3-5) and summarized. Uses only what both trees have.
 _AB_TURN = r"""
@@ -1216,7 +1242,7 @@ sys.path.insert(0, os.getcwd())
 import torch
 import chip_smoke as c
 from h2gcn_tpu_torch import run_experiments
-from h2gcn_tpu_torch.sparse import _build, attention as att
+from h2gcn_tpu_torch.sparse import SparseMatrix, _build, attention as att
 from h2gcn_tpu_torch.sparse import attention_coo as coo
 
 dev = run_experiments.resolve_device("cuda")
@@ -1238,6 +1264,21 @@ c.emit({"ab_kernels_ms": {
                                20),
     "coo_bwd_row": c.time_ms(lambda: coo.coo_bwd_row(*bwd, **kw), 20),
     "coo_bwd_col": c.time_ms(lambda: coo.coo_bwd_col(*bwd, **kw), 20)}})
+# B5's column pass at the Cora-shaped graph's layer 1, eager and in a CUDA
+# graph (both trees' wrapper launches without host synchronization)
+cora = c.self_looped(c.cora_graph())
+bsr = SparseMatrix.from_scipy(cora, backend="bsr", block_size=256,
+                              device=dev).bsr
+nc, ncp = cora.shape[0], bsr.n_row_blocks * bsr.block_size
+cf1, cf2 = (att.pad_rows(torch.randn(nc, H, generator=gen, device=dev), ncp)
+            for _ in range(2))
+ch, cg = (att.pad_rows(torch.randn(nc, H * F, generator=gen, device=dev),
+                       ncp) for _ in range(2))
+cout, cm, cl = att.gat_fwd_stats_plain(bsr, cf1, cf2, ch, **kw)
+cbwd = (bsr, cf1, cf2, ch, cg, cm, cl, att.head_dots(cg, cout, H, F))
+c.emit({"ab_gat_bwd_col": {
+    "kernel_ms": c.time_ms(lambda: att.gat_bwd_col(*cbwd, **kw), 20),
+    "device_ms": c.time_graph_ms(lambda: att.gat_bwd_col(*cbwd, **kw))}})
 _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 data = tempfile.mkdtemp(prefix="ab_", dir=_build.BUILD_DIR)
 try:
@@ -1396,13 +1437,13 @@ def main() -> int:
                                  "h2gcn_tpu/sparse/pallas_attention.py:143"),
                "gat_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
                                "h2gcn_tpu/sparse/pallas_attention.py:300"),
-               "gat_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+               "gat_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention_col.cu",
                                "h2gcn_tpu/sparse/pallas_attention.py:326"),
                "coo_fwd_stats": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
                                  "h2gcn_tpu/sparse/pallas_attention_coo.py:188"),
                "coo_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
                                "h2gcn_tpu/sparse/pallas_attention_coo.py:221"),
-               "coo_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
+               "coo_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention_col.cu",
                                "h2gcn_tpu/sparse/pallas_attention_coo.py:250"),
                "gscatter_weighted": (
                    "h2gcn_tpu_torch/csrc/gscatter_weighted.cu",

@@ -1,19 +1,19 @@
 // Fused multi-head graph attention over a BSR mask for Hopper: the forward
-// with its softmax statistics, the row backward pass and the column
-// backward pass.
+// with its softmax statistics and the row backward pass. The column backward
+// pass walks per-column lists built once from the mask
+// (sparse/attention.py: mask_col_lists) with the kernel of
+// gat_attention_col.cu.
 //
 // Replaces the TPU kernels of h2gcn_tpu/sparse/pallas_attention.py:
 //   gat_fwd        _make_fwd_stats_kernel / _make_kernel (_fwd_stats_call)
 //   gat_bwd_row    _make_bwd_row_kernel / _bwd_row_update (pass R)
-//   gat_bwd_col    _make_bwd_col_kernel / _bwd_col_update (pass C)
 // and reads the tables of h2gcn_tpu_torch/sparse/matrix.py:_build_bsr: dense
-// B x B f32 mask blocks sorted by (block row, block column), row_ptr over
-// them, and colmajor_order / col_ptr for the column pass. Every edge (i, j)
-// of the mask is a block entry > 0. For each head k, with F features a head:
+// B x B f32 mask blocks sorted by (block row, block column) and row_ptr over
+// them. Every edge (i, j) of the mask is a block entry > 0. For each head k,
+// with F features a head:
 //   e_ij   = LeakyReLU_slope(f1[i,k] + f2[j,k])
 //   out_i  = sum_j alpha_ij h_j,  alpha_ij = exp(e_ij - m_i) / max(l_i, 1e-16)
 //   df1_i  = sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij
-//   dh_j   = sum_i alpha_ij g_i,  df2_j = sum_i alpha_ij (g_i . h_j - D_i) leaky'_ij
 // where m_i is the row max of e, l_i the row sum of exp(e - m_i), and
 // D_i = g_i . out_i (computed by the caller).
 //
@@ -25,16 +25,13 @@
 // attention that chip_smoke.py reports as the bound.
 //
 // Design. Nothing is carried between thread blocks: one warp owns one
-// destination row i (forward, row pass) or one source column j (column
-// pass) and keeps that row's running state in registers for its whole walk.
-// The warp reads 32 mask entries at once (a row of a block is contiguous;
-// a column is strided, cached through L1 for the 8 neighbouring columns of
-// the thread block), takes their ballot and visits only the entries that
-// are set. What a warp does with each edge (gat_edge.cuh, shared with the
-// COO-chunk kernels of gat_attention_coo.cu): lane k holds head k's scalars
-// (m, l, f1, the df1 / df2 sums) and lane c holds feature c of the
-// concatenated H*F row (the output accumulator, g or h). They trade per-
-// edge values through a small per-warp shared-memory scratch (the per-head
+// destination row i and keeps that row's running state in registers for its
+// whole walk. The warp reads 32 mask entries of its row at once (a row of a
+// block is contiguous), takes their ballot and visits only the entries that
+// are set. What a warp does with each edge (gat_edge.cuh): lane k holds head
+// k's scalars (m, l, f1, the df1 sums) and lane c holds feature c of the
+// concatenated H*F row (the output accumulator, or g). They trade per-edge
+// values through a small per-warp shared-memory scratch (the per-head
 // rescale and weight, the per-feature products summed per head). The
 // online softmax rescales per edge, so a 256 KB block never has to sit in
 // shared memory. Padded rows and filler blocks have no entries: they keep
@@ -134,50 +131,6 @@ gat_bwd_row_kernel(const int* __restrict__ row_ptr,
   row.end(i, df1, H, lane);
 }
 
-template <int Q, int R>
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_col_kernel(const int* __restrict__ col_ptr,
-                   const int* __restrict__ colmajor,
-                   const int* __restrict__ block_rows,
-                   const float* __restrict__ blocks,
-                   const float* __restrict__ f1, const float* __restrict__ f2,
-                   const float* __restrict__ h, const float* __restrict__ g,
-                   const float* __restrict__ m_in,
-                   const float* __restrict__ l_in,
-                   const float* __restrict__ d_in, float* __restrict__ dh,
-                   float* __restrict__ df2, int n_cols, int B, int H, int F,
-                   float slope) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int HF = H * F;
-  float* alpha_s = smem + warp * (H + HF);  // per head: alpha_ij
-  float* prod_s = alpha_s + H;              // g_i[c] * h_j[c]
-  const int64_t j = (int64_t)blockIdx.x * kWarps + warp;
-  if (j >= n_cols) return;
-  const int cb = (int)(j / B), jl = (int)(j % B);
-
-  gat::ColBwd<Q, R> col;
-  col.begin(f2, h, j, H, F, lane);
-  const int t_end = col_ptr[cb + 1];
-  for (int t = col_ptr[cb]; t < t_end; ++t) {
-    const int b = colmajor[t];
-    const float* acol = blocks + (int64_t)b * B * B + jl;
-    const int64_t row0 = (int64_t)block_rows[b] * B;
-    for (int i0 = 0; i0 < B; i0 += 32) {
-      unsigned bits =
-          __ballot_sync(kAll, acol[(int64_t)(i0 + lane) * B] > 0.f);
-      while (bits) {
-        const int u = __ffs(bits) - 1;
-        bits &= bits - 1;
-        col.edge(row0 + i0 + u, f1, g, m_in, l_in, d_in, H, F, HF, slope,
-                 alpha_s, prod_s, lane);
-      }
-    }
-  }
-  col.end(j, dh, df2, H, HF, lane);
-}
-
 bool bad_shape(int n, int B, int H, int F) {
   return n <= 0 || B <= 0 || B % 32 != 0 || n % B != 0 || H < 1 || F < 1 ||
          H * F > gat::kMaxHF;
@@ -224,26 +177,5 @@ extern "C" int h2gcn_gat_bwd_row(const int* row_ptr, const int* block_cols,
         <<<grid, kThreads, smem, stream>>>(row_ptr, block_cols, blocks, f1,
                                            f2, h, g, m, l, d, df1, n_rows, B,
                                            H, F, slope);
-  });
-}
-
-// Column backward over the blocks in column-major order: dh [n_rows, H*F]
-// and df2 [n_rows, H], every row written.
-extern "C" int h2gcn_gat_bwd_col(const int* col_ptr, const int* colmajor,
-                                 const int* block_rows, const float* blocks,
-                                 const float* f1, const float* f2,
-                                 const float* h, const float* g,
-                                 const float* m, const float* l,
-                                 const float* d, float* dh, float* df2,
-                                 int n_rows, int B, int H, int F, float slope,
-                                 cudaStream_t stream) {
-  if (bad_shape(n_rows, B, H, F)) return cudaErrorInvalidValue;
-  const dim3 grid(n_rows / kWarps);
-  const size_t smem = (size_t)kWarps * (H + H * F) * sizeof(float);
-  return dispatch(H, F, [&](auto q, auto r) {
-    gat_bwd_col_kernel<decltype(q)::value, decltype(r)::value>
-        <<<grid, kThreads, smem, stream>>>(col_ptr, colmajor, block_rows,
-                                           blocks, f1, f2, h, g, m, l, d, dh,
-                                           df2, n_rows, B, H, F, slope);
   });
 }

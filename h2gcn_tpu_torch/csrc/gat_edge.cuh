@@ -1,14 +1,15 @@
-// Per-edge updates of the fused GAT attention, shared by the kernels over a
-// BSR mask (gat_attention.cu) and over COO-chunk tables
-// (gat_attention_coo.cu). The two differ only in how a warp finds the edges
-// of its row or column; what it does with each edge is here.
+// Per-edge updates of the fused GAT attention over a BSR mask
+// (gat_attention.cu): the forward's online softmax and the row pass. The
+// formulas are shared by every attention kernel of the port (the COO-chunk
+// ones of gat_attention_coo.cu and the column pass of gat_attention_col.cu
+// walk edge lists instead; gat_items.cuh).
 //
-// One warp owns one destination row i (forward, row pass) or one source
-// column j (column pass) and keeps its running state in registers. Lanes
-// take two roles: lane k holds head k's scalars (m, l, f1, the df1 / df2
-// sums; k = lane + 32 r < H) and lane c holds feature c of the concatenated
-// H*F row (c = lane + 32 q < H*F). They trade per-edge values through a
-// small per-warp shared-memory scratch. For head k, with F features a head:
+// One warp owns one destination row i and keeps its running state in
+// registers. Lanes take two roles: lane k holds head k's scalars (m, l, f1,
+// the df1 sums; k = lane + 32 r < H) and lane c holds feature c of the
+// concatenated H*F row (c = lane + 32 q < H*F). They trade per-edge values
+// through a small per-warp shared-memory scratch. For head k, with F
+// features a head:
 //   e_ij   = LeakyReLU_slope(f1[i,k] + f2[j,k])
 //   out_i  = sum_j alpha_ij h_j,  alpha_ij = exp(e_ij - m_i) / max(l_i, 1e-16)
 //   df1_i  = sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij
@@ -18,10 +19,11 @@
 // package's sentinel; with -inf, exp(m_old - m_new) would be NaN), l = 0
 // and writes out = 0.
 //
-// Bf16 selects the "default" precision: the operands of the head
-// contractions (alpha or p with h or g, and g with h) are rounded to bf16,
-// and every product and sum stays f32, as bf16 operands with f32
-// accumulation. The softmax statistics are f32 in both modes.
+// The BSR kernels are f32 throughout. operand<Bf16> is the edge-list
+// kernels' "default" precision: the operands of the head contractions
+// (alpha or p with h or g, and g with h) are rounded to bf16, and every
+// product and sum stays f32, as bf16 operands with f32 accumulation. The
+// softmax statistics are f32 in both modes.
 
 #pragma once
 
@@ -34,7 +36,7 @@
 namespace gat {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;  // rows (or columns) a thread block walks at once
+constexpr int kWarps = 8;  // rows a thread block walks at once
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHF = 512;
 constexpr unsigned kAll = 0xffffffffu;
@@ -53,7 +55,7 @@ __device__ __forceinline__ float operand(float v) {
 }
 
 // Forward: the online softmax of destination row i. Scratch: 2 H floats.
-template <int Q, int R, bool Bf16 = false>
+template <int Q, int R>
 struct FwdRow {
   float m[R], l[R], f1r[R], acc[Q];
   int hk[Q];
@@ -99,8 +101,7 @@ struct FwdRow {
     for (int q = 0; q < Q; ++q) {
       const int c = lane + 32 * q;
       if (c < HF) {
-        acc[q] = fmaf(operand<Bf16>(p_s[hk[q]]), operand<Bf16>(h[j * HF + c]),
-                      acc[q] * scale_s[hk[q]]);
+        acc[q] = fmaf(p_s[hk[q]], h[j * HF + c], acc[q] * scale_s[hk[q]]);
       }
     }
     __syncwarp();
@@ -130,7 +131,7 @@ struct FwdRow {
 };
 
 // Row backward: df1 of destination row i. Scratch: H F floats.
-template <int Q, int R, bool Bf16 = false>
+template <int Q, int R>
 struct RowBwd {
   float f1r[R], mr[R], lr[R], dr[R], acc[R], gq[Q];
 
@@ -153,7 +154,7 @@ struct RowBwd {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int c = lane + 32 * q;
-      gq[q] = c < HF ? operand<Bf16>(g[i * HF + c]) : 0.f;
+      gq[q] = c < HF ? g[i * HF + c] : 0.f;
     }
   }
 
@@ -164,7 +165,7 @@ struct RowBwd {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int c = lane + 32 * q;
-      if (c < HF) prod_s[c] = gq[q] * operand<Bf16>(h[j * HF + c]);
+      if (c < HF) prod_s[c] = gq[q] * h[j * HF + c];
     }
     __syncwarp();
 #pragma unroll
@@ -188,98 +189,6 @@ struct RowBwd {
     for (int r = 0; r < R; ++r) {
       const int k = lane + 32 * r;
       if (k < H) df1[i * H + k] = acc[r];
-    }
-  }
-};
-
-// Column backward: dh and df2 of source column j. Scratch: H + H F floats.
-template <int Q, int R, bool Bf16 = false>
-struct ColBwd {
-  float f2r[R], acc2[R], hq[Q], dhq[Q];
-  int hk[Q];
-
-  __device__ __forceinline__ void begin(const float* __restrict__ f2,
-                                        const float* __restrict__ h,
-                                        int64_t j, int H, int F, int lane) {
-    const int HF = H * F;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + 32 * r;
-      f2r[r] = k < H ? f2[j * H + k] : 0.f;
-      acc2[r] = 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int c = lane + 32 * q;
-      hq[q] = c < HF ? operand<Bf16>(h[j * HF + c]) : 0.f;
-      dhq[q] = 0.f;
-      hk[q] = c < HF ? c / F : 0;
-    }
-  }
-
-  // edge (i, j): alpha_ij from the saved m_i, l_i; dh_j += alpha g_i
-  __device__ __forceinline__ void edge(int64_t i, const float* __restrict__ f1,
-                                       const float* __restrict__ g,
-                                       const float* __restrict__ m_in,
-                                       const float* __restrict__ l_in,
-                                       const float* __restrict__ d_in, int H,
-                                       int F, int HF, float slope,
-                                       float* alpha_s, float* prod_s,
-                                       int lane) {
-    float alpha[R], dl[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + 32 * r;
-      alpha[r] = dl[r] = 0.f;
-      if (k < H) {
-        const float pre = f1[i * H + k] + f2r[r];
-        alpha[r] = expf(leaky(pre, slope) - m_in[i * H + k]) /
-                   fmaxf(l_in[i * H + k], 1e-16f);
-        dl[r] = pre >= 0.f ? 1.f : slope;
-        alpha_s[k] = alpha[r];
-      }
-    }
-    float gq[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int c = lane + 32 * q;
-      gq[q] = 0.f;
-      if (c < HF) {
-        gq[q] = operand<Bf16>(g[i * HF + c]);
-        prod_s[c] = gq[q] * hq[q];
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      if (lane + 32 * q < HF) {
-        dhq[q] = fmaf(operand<Bf16>(alpha_s[hk[q]]), gq[q], dhq[q]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + 32 * r;
-      if (k < H) {
-        float gh = 0.f;
-        for (int f = 0; f < F; ++f) gh += prod_s[k * F + f];
-        acc2[r] = fmaf(alpha[r] * (gh - d_in[i * H + k]), dl[r], acc2[r]);
-      }
-    }
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ void end(int64_t j, float* __restrict__ dh,
-                                      float* __restrict__ df2, int H, int HF,
-                                      int lane) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = lane + 32 * r;
-      if (k < H) df2[j * H + k] = acc2[r];
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int c = lane + 32 * q;
-      if (c < HF) dh[j * HF + c] = dhq[q];
     }
   }
 };

@@ -8,13 +8,17 @@ axis), over the edges ``(i, j)`` of a binary BSR mask (entries ``> 0``):
     e_ij  = LeakyReLU_slope(f1[i, k] + f2[j, k])
     out_i = sum_j softmax_j(e_ij) h[j, kF:(k+1)F]
 
-``f1, f2: [N, H]``; ``h: [N, H*F]``. Three kernels of
-``csrc/gat_attention.cu`` compute it without any edge-sized intermediate:
+``f1, f2: [N, H]``; ``h: [N, H*F]``. Three kernels compute it without any
+edge-sized intermediate:
 
-- :func:`gat_fwd_stats`: ``out`` and the row max ``m`` and normalizer ``l``;
-- :func:`gat_bwd_row`: ``df1``, recomputing alpha from ``m`` and ``l``;
-- :func:`gat_bwd_col`: ``dh`` and ``df2``, walking the blocks column by
-  column (``colmajor_order`` / ``col_ptr``).
+- :func:`gat_fwd_stats` (``csrc/gat_attention.cu``): ``out`` and the row
+  max ``m`` and normalizer ``l``;
+- :func:`gat_bwd_row` (same file): ``df1``, recomputing alpha from ``m``
+  and ``l``;
+- :func:`gat_bwd_col` (``csrc/gat_attention_col.cu``, shared with the
+  COO-chunk payload): ``dh`` and ``df2``, walking per-column edge lists
+  built once from the mask's entries (:func:`mask_col_lists`) in work
+  items that split a hub column (:func:`mask_col_items`).
 
 Each takes padded operands (``n_pad = n_blocks * B`` rows) and returns
 padded outputs. A CPU tensor takes the plain version beside it; a CUDA
@@ -25,9 +29,12 @@ tensor launches the kernel or raises. :func:`gat_attention` is the
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
+from .edge_items import EdgeItems, cached_items, launch_items
 
 NEG_INF = -1e30  # the JAX package's sentinel; -inf would give NaN rescales
 MAX_HF = 512  # the most H * F csrc/gat_attention.cu takes
@@ -164,6 +171,42 @@ def gat_bwd_col_plain(bsr, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
 
 
 # ---------------------------------------------------------------------------
+# The column pass's edge lists, from the mask itself.
+# ---------------------------------------------------------------------------
+
+
+def mask_col_lists(bsr):
+    """The mask's per-column edge lists ``(ptr [n_pad + 1], dst [E])``,
+    int32 on the mask's device: every block entry > 0 taken through
+    ``block_rows`` / ``block_cols`` to its (row, column), grouped by column
+    with rows ascending. These are exactly the edges the plain version and
+    the JAX kernel read. Built once, on the mask's device, and kept in
+    ``bsr.schedules``."""
+    if "gat_col_lists" not in bsr.schedules:
+        B, n_pad = _geometry(bsr)
+        b, il, jl = torch.nonzero(bsr.blocks > 0, as_tuple=True)
+        i = bsr.block_rows.to(torch.int64)[b] * B + il
+        j = bsr.block_cols.to(torch.int64)[b] * B + jl
+        order = torch.argsort(j * n_pad + i)  # unique keys: any sort will do
+        ptr = torch.zeros(n_pad + 1, dtype=torch.int64, device=j.device)
+        ptr[1:] = torch.cumsum(torch.bincount(j, minlength=n_pad), 0)
+        bsr.schedules["gat_col_lists"] = (ptr.to(torch.int32),
+                                          i[order].to(torch.int32))
+    return bsr.schedules["gat_col_lists"]
+
+
+def mask_col_items(bsr, budget: Optional[int] = None,
+                   row_cost: Optional[int] = None) -> EdgeItems:
+    """The column pass's work items over :func:`mask_col_lists` at
+    ``budget`` edges an item and ``row_cost`` (the COO-chunk payload's
+    defaults, :data:`~.edge_items.EDGE_BUDGET` and
+    :data:`~.edge_items.ROW_COST`), built once and kept in
+    ``bsr.schedules``."""
+    ptr, _ = mask_col_lists(bsr)
+    return cached_items(bsr.schedules, ptr, "col", budget, row_cost)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -189,7 +232,7 @@ def _check(name, bsr, num_heads, feat, **tensors):
                              f"[{n_pad}, {widths[key]}], not {t.dtype} "
                              f"{tuple(t.shape)}")
     for t in [bsr.blocks, bsr.row_ptr, bsr.block_cols, bsr.block_rows,
-              bsr.colmajor_order, bsr.col_ptr, *tensors.values()]:
+              *tensors.values()]:
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous and on "
                              f"{device}")
@@ -260,25 +303,22 @@ def gat_bwd_col(bsr, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
                 feat: int, slope: float = 0.2):
     """Column backward pass on padded operands -> ``(dh, df2)``. A CPU
     tensor takes :func:`gat_bwd_col_plain`; a CUDA tensor launches
-    ``h2gcn_gat_bwd_col`` or raises."""
+    ``h2gcn_gat_coo_bwd_col`` over the mask's per-column lists
+    (:func:`mask_col_items`) or raises."""
     if not _on_cuda("gat_bwd_col", hp):
         return gat_bwd_col_plain(bsr, f1p, f2p, hp, gp, m, l, d,
                                  num_heads=num_heads, feat=feat, slope=slope)
-    B, n_pad = _check("gat_bwd_col", bsr, num_heads, feat, f1=f1p, f2=f2p,
+    _, n_pad = _check("gat_bwd_col", bsr, num_heads, feat, f1=f1p, f2=f2p,
                       h=hp, g=gp, m=m, l=l, d=d)
     dh = torch.empty(n_pad, num_heads * feat, dtype=torch.float32,
                      device=hp.device)
     df2 = torch.empty(n_pad, num_heads, dtype=torch.float32,
                       device=hp.device)
-    lib, _ = _build.library()
-    err = lib.h2gcn_gat_bwd_col(
-        bsr.col_ptr.data_ptr(), bsr.colmajor_order.data_ptr(),
-        bsr.block_rows.data_ptr(), bsr.blocks.data_ptr(), f1p.data_ptr(),
-        f2p.data_ptr(), hp.data_ptr(), gp.data_ptr(), m.data_ptr(),
-        l.data_ptr(), d.data_ptr(), dh.data_ptr(), df2.data_ptr(), n_pad, B,
-        num_heads, feat, slope, _stream(hp))
-    _build.check(lib, err, "gat_bwd_col")
-    gat_bwd_col.launches += 1
+    ptr, dst = mask_col_lists(bsr)
+    launch_items(gat_bwd_col, "h2gcn_gat_coo_bwd_col", ptr, dst,
+                 mask_col_items(bsr), (f1p, f2p, hp, gp, m, l, d, dh, df2),
+                 num_heads * (1 + feat), num_heads=num_heads, feat=feat,
+                 slope=slope, precision="highest", warps=None)
     return dh, df2
 
 

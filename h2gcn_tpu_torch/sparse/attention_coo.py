@@ -7,8 +7,7 @@ The port of ``h2gcn_tpu/sparse/pallas_attention_coo.py``. It computes what
 ``out_i = sum_j softmax_j(LeakyReLU(f1[i, k] + f2[j, k])) h[j, kF:(k+1)F]``
 over the support's edges), but the support rides as per-tile edge chunks,
 O(edges) bytes instead of O(tiles * T^2), so it scales past the BSR budget
-with no edge-sized intermediate. Three kernels of
-``csrc/gat_attention_coo.cu``:
+with no edge-sized intermediate. Three kernels:
 
 - :func:`coo_fwd_stats`: ``out`` and the row max ``m`` and normalizer ``l``;
 - :func:`coo_bwd_row`: ``df1`` over the forward tables;
@@ -16,12 +15,13 @@ with no edge-sized intermediate. Three kernels of
   same edges grouped by source tile).
 
 Each takes padded operands (``n_pad = n_tiles * tile`` rows) and returns
-padded outputs. The row pass launches once per table segment; the forward
-and the column pass walk per-row and per-column edge lists sorted once from
-the same tables (:func:`build_edge_lists`), in work items that spread a hub
-row over many warps (:func:`build_edge_items`), one launch a call (and a
-small merge launch when a row is split). A CPU tensor takes the plain
-version beside it; a CUDA tensor launches the kernel or raises.
+padded outputs. The three walk per-row (forward, row pass) and per-column
+(column pass, ``csrc/gat_attention_col.cu``) edge lists sorted once from
+the tables (:func:`~.edge_items.build_edge_lists`), in work items that
+spread a hub row over many warps (:func:`~.edge_items.build_edge_items`),
+one launch a call (and a small merge launch when a row is split). A CPU
+tensor takes the plain version beside it; a CUDA tensor launches the
+kernel or raises.
 :func:`gat_attention_coo` is the ``torch.autograd.Function`` over them.
 
 Precision: ``"highest"`` is f32 throughout; ``"default"`` rounds the head
@@ -37,27 +37,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
-from .attention import (MAX_HF, NEG_INF, _leaky, _on_cuda, _stream,
-                        head_dots, pad_rows)
+from .attention import MAX_HF, NEG_INF, _leaky, _on_cuda, head_dots, pad_rows
 from .cootile import build_chunk_tables
+from .edge_items import (EDGE_BUDGET, ITEM_WARPS, ROW_COST,  # noqa: F401
+                         _MAX_ITEM_ROWS, EdgeItems, build_edge_items,
+                         build_edge_lists, cached_items, launch_items)
 
 KB_FWD = 8   # the JAX package's chunks per grid step, forward and row tables
 KB_COL = 8   # and transpose tables; the tables keep its kb padding
 MAX_CHUNKS = 64 * 1024  # the JAX package's segment size (its SMEM budget)
-_MAX_TILE = 1024    # csrc/gat_attention_coo.cu's limit on T
-_SMEM_BYTES = 227 * 1024  # shared memory one thread block may take
-_WARPS = 8          # csrc/gat_edge.cuh kWarps
-# The forward's and the column pass's work items: edges one item (one
-# warp) walks at most, items a thread block, and what a row costs an item
-# beside its edges, in edges (a warp walks its rows one after another,
-# each a chain of dependent loads); from chip_smoke.py's coo_sweep on the
-# H100 (PERF.md)
-EDGE_BUDGET = 128
-ITEM_WARPS = 4
-ROW_COST = 16
-_MAX_ITEM_WARPS = 16  # csrc/gat_attention_coo.cu kMaxItemWarps
-_MAX_ITEM_ROWS = 32   # rows one item walks at most (the kernels' limit)
 
 
 @dataclasses.dataclass
@@ -76,35 +64,6 @@ class AttnCooSegment:
     tile_ptr: torch.Tensor  # [hi - lo + 1] int32 first chunk of each tile
     lo: int                 # first output tile
     hi: int                 # one past the last output tile
-    max_tile_slots: int = 0  # the most slots one output tile holds
-
-
-@dataclasses.dataclass
-class EdgeItems:
-    """The work items of the forward (over the per-row lists) or the column
-    pass (per-column lists): each item is one warp's walk. ``items[i] =
-    (lo, hi, e_lo, e_hi)``: rows ``lo .. hi``, clipped to list positions
-    ``e_lo .. e_hi``; either a run of whole rows or one piece of a split
-    row, whose partial state goes to workspace slot ``slot[i]`` (-1 for
-    whole rows). Split row ``split_rows[s]`` has slots ``split_ptr[s] ..
-    split_ptr[s + 1]``."""
-
-    items: torch.Tensor       # [I, 4] int32
-    slot: torch.Tensor        # [I] int32
-    split_rows: torch.Tensor  # [S] int32
-    split_ptr: torch.Tensor   # [S + 1] int32
-    kind: str                 # "fwd" (per-row lists) or "col"
-    budget: int
-    row_cost: int
-    n_pieces: int             # workspace slots: split_ptr[-1]
-
-    @property
-    def n_items(self) -> int:
-        return int(self.items.shape[0])
-
-    @property
-    def n_split(self) -> int:
-        return int(self.split_rows.shape[0])
 
 
 @dataclasses.dataclass
@@ -152,7 +111,6 @@ def _segment(grp, oth, rows, cols, vals, kb, swap_coords=False,
         max_chunks = len(grp)
     total = len(grp)
     starts = np.flatnonzero(np.diff(grp, prepend=-1))
-    e_b = rows.shape[1]
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -175,8 +133,7 @@ def _segment(grp, oth, rows, cols, vals, kb, swap_coords=False,
         segs.append(AttnCooSegment(
             grp=dev(grp[sl]), oth=dev(oth[sl]), rows=dev(rows[sl]),
             cols=dev(cols[sl]), vals=dev(vals[sl]),
-            tile_ptr=dev(tile_ptr.astype(np.int32)), lo=t_lo, hi=t_hi,
-            max_tile_slots=int(np.diff(tile_ptr).max()) * e_b))
+            tile_ptr=dev(tile_ptr.astype(np.int32)), lo=t_lo, hi=t_hi))
         lo = hi
     return tuple(segs)
 
@@ -220,76 +177,14 @@ def build_attn_coo(csr, tile: int = 256, e_b: Optional[int] = 128,
     return ac
 
 
-def build_edge_lists(key, other, n_rows: int):
-    """Edges grouped by ``key`` (numpy only): ``(ptr [n_rows + 1], other
-    [E])``, both int32; the edges of key ``r`` have their other ends at
-    ``other[ptr[r]:ptr[r + 1]]``, in the order given (a stable sort)."""
-    key = np.asarray(key, np.int64)
-    order = np.argsort(key, kind="stable")
-    ptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(np.bincount(key, minlength=n_rows), out=ptr[1:])
-    return (ptr.astype(np.int32),
-            np.asarray(other, np.int64)[order].astype(np.int32))
-
-
-def build_edge_items(ptr, budget: int, row_cost: int = ROW_COST,
-                     max_rows: int = _MAX_ITEM_ROWS):
-    """The kernels' work items over per-row lists ``ptr`` (numpy only).
-
-    Whole rows are packed into one item while their edges plus
-    ``row_cost`` a row stay within ``budget`` (at least one row an item, at
-    most ``max_rows``); a row of more than ``budget`` edges is cut into
-    ``ceil(deg / budget)`` near-equal pieces of its own. Every row
-    ``0 .. len(ptr) - 1``, with or without edges, lies in exactly one item
-    or is split. Returns ``(items [I, 4], slot [I], split_rows [S],
-    split_ptr [S + 1])``, all int32, as :class:`EdgeItems` holds them."""
-    ptr = np.asarray(ptr, np.int64)
-    n = len(ptr) - 1
-    deg = np.diff(ptr)
-    budget = max(1, int(budget))
-    big = np.flatnonzero(deg > budget)
-    cost = ptr + int(row_cost) * np.arange(n + 1)  # cumulative item cost
-    items, slot, split_rows, split_ptr = [], [], [], [0]
-    r = 0
-    while r < n:
-        if deg[r] > budget:
-            k = -(-int(deg[r]) // budget)
-            cuts = ptr[r] + (np.arange(k + 1) * deg[r]) // k
-            items.extend((r, r + 1, cuts[p], cuts[p + 1]) for p in range(k))
-            slot.extend(range(split_ptr[-1], split_ptr[-1] + k))
-            split_rows.append(r)
-            split_ptr.append(split_ptr[-1] + k)
-            r += 1
-            continue
-        nxt = np.searchsorted(big, r)
-        hi = min(n, r + max_rows, int(big[nxt]) if nxt < len(big) else n)
-        fit = int(np.searchsorted(cost, cost[r] + budget, side="right")) - 1
-        r1 = max(r + 1, min(fit, hi))
-        items.append((r, r1, ptr[r], ptr[r1]))
-        slot.append(-1)
-        r = r1
-    return (np.asarray(items, np.int32).reshape(-1, 4),
-            np.asarray(slot, np.int32), np.asarray(split_rows, np.int32),
-            np.asarray(split_ptr, np.int32))
-
-
 def edge_items(ac: AttnCoo, kind: str, budget: Optional[int] = None,
                row_cost: Optional[int] = None) -> EdgeItems:
-    """The work items of the forward (``kind="fwd"``) or the column pass
-    (``"col"``) at ``budget`` edges an item and ``row_cost``
+    """The work items of the forward and the row pass (``kind="fwd"``) or
+    the column pass (``"col"``) at ``budget`` edges an item and ``row_cost``
     (:data:`EDGE_BUDGET` and :data:`ROW_COST` by default), built once and
     kept on ``ac``."""
-    budget = EDGE_BUDGET if budget is None else int(budget)
-    row_cost = ROW_COST if row_cost is None else int(row_cost)
-    key = (kind, budget, row_cost)
-    if key not in ac.items:
-        ptr = ac.fwd_ptr if kind == "fwd" else ac.col_ptr
-        parts = build_edge_items(ptr.cpu().numpy(), budget, row_cost)
-        ac.items[key] = EdgeItems(
-            *(torch.from_numpy(a).to(ptr.device) for a in parts),
-            kind=kind, budget=budget, row_cost=row_cost,
-            n_pieces=int(parts[3][-1]))
-    return ac.items[key]
+    ptr = ac.fwd_ptr if kind == "fwd" else ac.col_ptr
+    return cached_items(ac.items, ptr, kind, budget, row_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -340,36 +235,46 @@ def _alpha(f1p, f2p, m, l, dest, src, slope):
     return alpha, torch.where(pre >= 0, 1.0, slope)
 
 
+def _sum_rows(n_rows, index, values):
+    """``values`` [E, ...] summed into ``n_rows`` rows at ``index`` in
+    float64, for the caller to round to float32 once: torch's CPU
+    ``index_add_`` in float32 gave sums that varied from call to call on a
+    loaded machine (up to 1.2e-3 in l)."""
+    out = torch.zeros((n_rows,) + tuple(values.shape[1:]), dtype=torch.float64,
+                      device=values.device)
+    return out.index_add_(0, index, values.double())
+
+
 def coo_fwd_stats_plain(ac: AttnCoo, f1p, f2p, hp, *, num_heads: int,
                         feat: int, slope: float = 0.2,
                         precision: str = "highest"):
-    """-> ``(out [n_pad, H*F], m [n_pad, H], l [n_pad, H])``."""
+    """-> ``(out [n_pad, H*F], m [n_pad, H], l [n_pad, H])``; the sums run
+    in float64 and are rounded to float32 once."""
     H, F = num_heads, feat
     n_pad = hp.shape[0]
     dest, src = coo_edges(ac.fwd, ac.tile)
     e, m = _stats(f1p, f2p, dest, src, n_pad, slope)
     p = torch.exp(e - m[dest])
-    l = torch.zeros(n_pad, H, dtype=torch.float32,
-                    device=hp.device).index_add_(0, dest, p)
+    l = _sum_rows(n_pad, dest, p)
     contrib = (_operand(p, precision)[:, :, None]
                * _operand(hp[src], precision).reshape(-1, H, F))
-    acc = torch.zeros(n_pad, H, F, dtype=torch.float32,
-                      device=hp.device).index_add_(0, dest, contrib)
-    out = acc / torch.clamp(l, min=1e-16)[:, :, None]
-    return out.reshape(n_pad, H * F), m, l
+    acc = _sum_rows(n_pad, dest, contrib)
+    out = (acc / torch.clamp(l, min=1e-16)[:, :, None]).float()
+    return out.reshape(n_pad, H * F), m, l.float()
 
 
 def coo_bwd_row_plain(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *,
                       num_heads: int, feat: int, slope: float = 0.2,
                       precision: str = "highest"):
-    """-> ``df1 [n_pad, H]``: sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij."""
+    """-> ``df1 [n_pad, H]``: sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij,
+    summed in float64 and rounded to float32 once."""
     H, F = num_heads, feat
     dest, src = coo_edges(ac.fwd, ac.tile)
     alpha, dleaky = _alpha(f1p, f2p, m, l, dest, src, slope)
     gh = (_operand(gp[dest], precision)
           * _operand(hp[src], precision)).reshape(-1, H, F).sum(dim=2)
     dpre = alpha * (gh - d[dest]) * dleaky
-    return torch.zeros_like(f1p).index_add_(0, dest, dpre)
+    return _sum_rows(f1p.shape[0], dest, dpre).float()
 
 
 def coo_bwd_col_plain(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *,
@@ -377,17 +282,16 @@ def coo_bwd_col_plain(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *,
                       precision: str = "highest"):
     """-> ``(dh [n_pad, H*F], df2 [n_pad, H])`` over the transpose tables:
     dh_j = sum_i alpha_ij g_i and df2_j = sum_i alpha_ij (g_i . h_j - D_i)
-    leaky'_ij."""
+    leaky'_ij, summed in float64 and rounded to float32 once."""
     H, F = num_heads, feat
     dest, src = coo_edges(ac.bwd, ac.tile, transpose=True)
     alpha, dleaky = _alpha(f1p, f2p, m, l, dest, src, slope)
     g_e = _operand(gp[dest], precision).reshape(-1, H, F)
-    dh = torch.zeros_like(hp).index_add_(
-        0, src, (_operand(alpha, precision)[:, :, None] * g_e).reshape(
-            -1, H * F))
+    dh = _sum_rows(hp.shape[0], src, (_operand(alpha, precision)[:, :, None]
+                                      * g_e).reshape(-1, H * F))
     gh = (g_e * _operand(hp[src], precision).reshape(-1, H, F)).sum(dim=2)
     dpre = alpha * (gh - d[dest]) * dleaky
-    return dh, torch.zeros_like(f2p).index_add_(0, src, dpre)
+    return dh.float(), _sum_rows(f2p.shape[0], src, dpre).float()
 
 
 # ---------------------------------------------------------------------------
@@ -402,9 +306,6 @@ def _check(name, ac: AttnCoo, num_heads, feat, precision, **tensors):
     if H < 1 or F < 1 or H * F > MAX_HF:
         raise ValueError(f"{name}: H*F = {H}*{F} is outside the kernel's "
                          f"limit 1..{MAX_HF}")
-    if ac.tile % 32 or ac.tile > _MAX_TILE:
-        raise ValueError(f"{name}: tile {ac.tile} is not a multiple of 32 "
-                         f"up to {_MAX_TILE}")
     if precision not in ("highest", "default"):
         raise ValueError(f"{name}: unknown precision {precision!r}")
     widths = {"f1": H, "f2": H, "h": H * F, "g": H * F, "m": H, "l": H,
@@ -415,80 +316,28 @@ def _check(name, ac: AttnCoo, num_heads, feat, precision, **tensors):
             raise ValueError(f"{name}: {key} must be float32 "
                              f"[{n_pad}, {widths[key]}], not {t.dtype} "
                              f"{tuple(t.shape)}")
-    tables = [t for seg in ac.fwd + ac.bwd for t in (
-        seg.grp, seg.oth, seg.rows, seg.cols, seg.vals, seg.tile_ptr)] + [
-            ac.fwd_ptr, ac.fwd_src, ac.col_ptr, ac.col_dst]
-    for t in [*tensors.values(), *tables]:
+    lists = [ac.fwd_ptr, ac.fwd_src, ac.col_ptr, ac.col_dst]
+    for t in [*tensors.values(), *lists]:
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous and on "
                              f"{device}")
     return n_pad
 
 
-def _list_place(seg: AttnCooSegment, scratch_floats: int, tile: int,
-                device):
-    """Where the kernel keeps a tile's bucketed edge list: ``(ws,
-    list_slots)``; in shared memory when the segment's fullest tile fits
-    beside the warps' scratch and the per-row starts, else in a workspace
-    with a slot for each of the segment's slots."""
-    fixed = 4 * (_WARPS * scratch_floats + 2 * tile + 1)
-    if fixed + 4 * seg.max_tile_slots <= _SMEM_BYTES:
-        return None, seg.max_tile_slots
-    return torch.empty(seg.vals.numel(), dtype=torch.int32, device=device), 0
-
-
-def _launch(wrapper, fn, segs, ac, num_heads, feat, slope, precision,
-            scratch, tensors):
-    """Launch ``fn`` (the row pass) once per segment of ``segs`` on
-    ``tensors`` (data pointers, in the launcher's order), raising on a
-    launch error and counting each launch on ``wrapper``."""
-    lib, _ = _build.library()
-    ref = tensors[0]
-    for seg in segs:
-        ws, list_slots = _list_place(seg, scratch, ac.tile, ref.device)
-        err = getattr(lib, fn)(
-            seg.tile_ptr.data_ptr(), seg.oth.data_ptr(), seg.rows.data_ptr(),
-            seg.cols.data_ptr(), seg.vals.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            *(t.data_ptr() for t in tensors), seg.lo, seg.hi - seg.lo,
-            ac.tile, ac.e_b, list_slots, num_heads, feat, slope,
-            int(precision == "default"), _stream(ref))
-        _build.check(lib, err, wrapper.__name__)
-        wrapper.launches += 1
-
-
 def _launch_items(wrapper, fn, ac, kind, num_heads, feat, slope, precision,
                   items, warps, tensors, ws_floats):
-    """Launch ``fn`` over the work items of ``kind`` (``items``, or
-    :func:`edge_items`' default) with ``warps`` items a block on
-    ``tensors`` (data pointers, in the launcher's order) and a workspace of
-    ``ws_floats`` a split row's piece; raises on a launch error and counts
-    the launch on ``wrapper`` (its merge launch, when a row is split, is
-    part of it)."""
-    name = wrapper.__name__
-    warps = ITEM_WARPS if warps is None else int(warps)
-    if not 1 <= warps <= _MAX_ITEM_WARPS:
-        raise ValueError(f"{name}: warps {warps} is outside "
-                         f"1..{_MAX_ITEM_WARPS}")
+    """Launch ``fn`` over the payload's lists of ``kind`` and their work
+    items (``items``, or :func:`edge_items`' default) with ``warps`` items a
+    block (:func:`~.edge_items.launch_items`)."""
     it = edge_items(ac, kind) if items is None else items
     if it.kind != kind:
-        raise ValueError(f"{name}: needs the {kind!r} work items, not "
-                         f"{it.kind!r}")
+        raise ValueError(f"{wrapper.__name__}: needs the {kind!r} work "
+                         f"items, not {it.kind!r}")
     ptr, other = ((ac.fwd_ptr, ac.fwd_src) if kind == "fwd"
                   else (ac.col_ptr, ac.col_dst))
-    ref = tensors[0]
-    ws = (torch.empty(it.n_pieces * ws_floats, dtype=torch.float32,
-                      device=ref.device) if it.n_pieces else None)
-    lib, _ = _build.library()
-    err = getattr(lib, fn)(
-        it.items.data_ptr(), it.slot.data_ptr(), it.split_rows.data_ptr(),
-        it.split_ptr.data_ptr(), ptr.data_ptr(), other.data_ptr(),
-        *(t.data_ptr() for t in tensors),
-        None if ws is None else ws.data_ptr(), it.n_items, it.n_split,
-        num_heads, feat, slope, int(precision == "default"), warps,
-        _stream(ref))
-    _build.check(lib, err, wrapper.__name__)
-    wrapper.launches += 1
+    launch_items(wrapper, fn, ptr, other, it, tensors, ws_floats,
+                 num_heads=num_heads, feat=feat, slope=slope,
+                 precision=precision, warps=warps)
 
 
 def coo_fwd_stats(ac: AttnCoo, f1p, f2p, hp, *, num_heads: int, feat: int,
@@ -518,10 +367,14 @@ def coo_fwd_stats(ac: AttnCoo, f1p, f2p, hp, *, num_heads: int, feat: int,
 
 
 def coo_bwd_row(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
-                feat: int, slope: float = 0.2, precision: str = "highest"):
+                feat: int, slope: float = 0.2, precision: str = "highest",
+                items: Optional[EdgeItems] = None,
+                warps: Optional[int] = None):
     """Row backward pass on padded operands -> ``df1``. A CPU tensor takes
     :func:`coo_bwd_row_plain`; a CUDA tensor launches
-    ``h2gcn_gat_coo_bwd_row`` or raises."""
+    ``h2gcn_gat_coo_bwd_row`` over the forward's per-row lists and work
+    items or raises. ``items`` (``edge_items(ac, "fwd", ...)``) and
+    ``warps`` as for :func:`coo_fwd_stats`."""
     kw = dict(num_heads=num_heads, feat=feat, slope=slope,
               precision=precision)
     if not _on_cuda("coo_bwd_row", hp):
@@ -530,9 +383,10 @@ def coo_bwd_row(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
                    f2=f2p, h=hp, g=gp, m=m, l=l, d=d)
     df1 = torch.empty(n_pad, num_heads, dtype=torch.float32,
                       device=hp.device)
-    _launch(coo_bwd_row, "h2gcn_gat_coo_bwd_row", ac.fwd, ac,
-            scratch=num_heads * feat,
-            tensors=(f1p, f2p, hp, gp, m, l, d, df1), **kw)
+    _launch_items(coo_bwd_row, "h2gcn_gat_coo_bwd_row", ac, "fwd",
+                  items=items, warps=warps,
+                  tensors=(f1p, f2p, hp, gp, m, l, d, df1),
+                  ws_floats=num_heads, **kw)
     return df1
 
 

@@ -1,15 +1,17 @@
 """The COO-chunk attention's per-row edge lists and work items, on the CPU.
 
-The forward and the column pass of ``csrc/gat_attention_coo.cu`` walk
-per-row (per-column) edge lists sorted once from the chunk tables, in work
-items of at most ``budget`` edges; a longer row is cut into pieces whose
-partial softmax states are merged. These tests hold the lists against the
-tables' own edges (``coo_edges``), the items against their contract
-(every row once, no item past its budget, hubs cut into near-equal pieces,
-empty and padding rows covered, the same items every build), and a walk of
-the items in numpy, merged as the kernels merge split rows, against a
-float64 softmax row by row at 1e-5 of the output's scale (the walk sums in
-f32 and in another order)."""
+The forward and the row pass (``csrc/gat_attention_coo.cu``) and the column
+pass (``csrc/gat_attention_col.cu``) walk per-row (per-column) edge lists
+sorted once from the chunk tables, in work items of at most ``budget``
+edges; a longer row is cut into pieces whose partial states are merged.
+These tests hold the lists against the tables' own edges (``coo_edges``),
+the items against their contract (every row once, no item past its budget,
+hubs cut into near-equal pieces, empty and padding rows covered, the same
+items every build), and walks of the items in numpy, merged as the kernels
+merge split rows, against a float64 softmax and row gradient row by row at
+1e-5 of the output's scale (the walks sum in f32, in another order and,
+for the row pass, another association). The plain versions sum in float64,
+so their results do not depend on the CPU's threads."""
 
 import numpy as np
 import pytest
@@ -242,3 +244,103 @@ def test_items_walked_and_merged_give_the_row_softmax(budget):
         scale = max(1.0, np.abs(y[live]).max())
         np.testing.assert_allclose(x[live], y[live], rtol=0,
                                    atol=1e-5 * scale)
+
+
+def _walk_row(ac, it, f1, f2, h, g, m, l, d, slope=0.2):
+    """What the row pass computes, item by item in f32 numpy: per row (or
+    piece) df1 = sum_c g_i[c] (sum_j w_ij h_j[c]) - D_i sum_j w_ij, w =
+    alpha * leaky', the row's constants read once; pieces summed in piece
+    order, as the kernel's merge sums them."""
+    ptr, src = ac.fwd_ptr.numpy(), ac.fwd_src.numpy()
+    df1 = np.zeros((len(ptr) - 1, H), np.float32)
+    parts = {}
+    for (lo, hi, e_lo, e_hi), s in zip(it.items.numpy(), it.slot.numpy()):
+        for r in range(lo, hi):
+            j = src[max(ptr[r], e_lo):min(ptr[r + 1], e_hi)]
+            pre = f1[r] + f2[j]
+            alpha = (np.exp(np.where(pre >= 0, pre, slope * pre) - m[r])
+                     / np.maximum(l[r], 1e-16))
+            w = np.where(pre >= 0, alpha, slope * alpha)
+            dw = np.einsum("ek,ekf->kf", w, h[j].reshape(-1, H, F))
+            part = (g[r].reshape(H, F) * dw).sum(1) - d[r] * w.sum(0)
+            if s >= 0:
+                parts.setdefault(r, []).append((s, part))
+            else:
+                df1[r] = part
+    assert sorted(parts) == sorted(it.split_rows.tolist())
+    for r, ps in parts.items():
+        ps.sort(key=lambda p: p[0])
+        df1[r] = np.sum([p[1] for p in ps], 0, dtype=np.float32)
+    return df1
+
+
+def _row_df1(a, n_pad, f1, f2, h, g, m, l, d, slope=0.2):
+    """df1 row by row from the scipy support, in float64:
+    sum_j alpha_ij (g_i . h_j - D_i) leaky'_ij."""
+    df1 = np.zeros((n_pad, H))
+    for r in range(a.shape[0]):
+        j = a.indices[a.indptr[r]:a.indptr[r + 1]]
+        pre = f1[r].astype(np.float64) + f2[j]
+        alpha = np.exp(np.where(pre >= 0, pre, slope * pre) - m[r]) / l[r]
+        gh = np.einsum("kf,ekf->ek", g[r].reshape(H, F).astype(np.float64),
+                       h[j].reshape(-1, H, F))
+        df1[r] = (alpha * (gh - d[r]) * np.where(pre >= 0, 1.0, slope)).sum(0)
+    return df1
+
+
+@pytest.mark.parametrize("budget", [5, 64])
+def test_row_pass_items_walked_give_the_row_gradient(budget):
+    """The row pass over the forward's items (hub rows split) against a
+    float64 reference, at 1e-5 of df1's scale; rows without an edge (the
+    padding rows: the star adds self loops) get exactly 0."""
+    a = (_support() + _star(N, 300)).tocsr()
+    a.sum_duplicates()
+    ac = tac.build_attn_coo(a, tile=TILE, e_b=E_B)
+    n_pad = ac.n_tiles * TILE
+    rng = np.random.default_rng(1)
+    f1, f2 = (rng.standard_normal((n_pad, H)).astype(np.float32)
+              for _ in range(2))
+    h, g = (rng.standard_normal((n_pad, H * F)).astype(np.float32)
+            for _ in range(2))
+    out, m, l = (x.astype(np.float32)
+                 for x in _row_softmax(a, n_pad, f1, f2, h))
+    d = (g.reshape(-1, H, F) * out.reshape(-1, H, F)).sum(2)
+    it = tac.edge_items(ac, "fwd", budget)
+    assert it.n_split > 0 and 0 in it.split_rows.tolist()  # the star row
+    got = _walk_row(ac, it, f1, f2, h, g, m, l, d)
+    want = _row_df1(a, n_pad, f1, f2, h, g, m, l, d)
+    empty = np.diff(ac.fwd_ptr.numpy()) == 0
+    assert empty[N:].all() and n_pad > N  # the padding rows
+    assert (got[empty] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def test_coo_plain_versions_are_deterministic_across_threads():
+    """The plain versions sum in float64 and round once, so their results
+    do not depend on how many CPU threads their index_add_ takes."""
+    a = (_support() + _star(N, 300)).tocsr()
+    ac = tac.build_attn_coo(a, tile=TILE, e_b=E_B)
+    n_pad = ac.n_tiles * TILE
+    rng = np.random.default_rng(2)
+    f1, f2 = (torch.from_numpy(rng.standard_normal((n_pad, H))
+                               .astype(np.float32)) for _ in range(2))
+    h, g = (torch.from_numpy(rng.standard_normal((n_pad, H * F))
+                             .astype(np.float32)) for _ in range(2))
+    kw = dict(num_heads=H, feat=F)
+    threads = torch.get_num_threads()
+    runs = []
+    try:
+        for k in (1, 4):
+            torch.set_num_threads(k)
+            out, m, l = tac.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
+            d = tac.head_dots(g, out, H, F)
+            bwd = (ac, f1, f2, h, g, m, l, d)
+            runs.append((out, m, l, tac.coo_bwd_row_plain(*bwd, **kw))
+                        + tac.coo_bwd_col_plain(*bwd, **kw))
+    finally:
+        torch.set_num_threads(threads)
+    for one, four in zip(*runs):
+        live = one > tac.NEG_INF / 2
+        scale = max(1.0, float(one[live].abs().max()))
+        assert float((one - four).abs().max()) <= 1e-7 * scale

@@ -342,8 +342,8 @@ def _coo_inputs(case, cuda):
 def test_coo_kernels_match_plain(cuda, case, precision):
     T, n, H, F, loops, empty, hubs, max_chunks = case
     ac, f1, f2, h, g = _coo_inputs(case, cuda)
-    if hubs:  # the fullest tile's list does not fit in shared memory
-        assert ac.fwd[0].max_tile_slots * 4 > tcoo._SMEM_BYTES
+    if hubs:  # the hub rows are cut into pieces that a merge launch sums
+        assert tcoo.edge_items(ac, "fwd").n_split > 0
     kw = dict(num_heads=H, feat=F, precision=precision)
     tol = GAT_TOL if precision == "highest" else BF16_TOL
     launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
@@ -354,11 +354,10 @@ def test_coo_kernels_match_plain(cuda, case, precision):
     df1 = tcoo.coo_bwd_row(ac, f1, f2, h, g, *ref[1:], d, **kw)
     dh, df2 = tcoo.coo_bwd_col(ac, f1, f2, h, g, *ref[1:], d, **kw)
     torch.cuda.synchronize()
-    # the row pass launches once a segment; the forward and the column
-    # pass once a call over the per-row and per-column lists
+    # each launches once a call over the per-row and per-column lists,
+    # however many segments the tables hold
     assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
-            tcoo.coo_bwd_col.launches) == (
-                launches[0] + 1, launches[1] + len(ac.fwd), launches[2] + 1)
+            tcoo.coo_bwd_col.launches) == tuple(c + 1 for c in launches)
     if max_chunks:
         assert len(ac.fwd) > 1 and len(ac.bwd) > 1
     _close(out, ref[0], tol)
@@ -373,6 +372,7 @@ def test_coo_kernels_match_plain(cuda, case, precision):
         assert (l[T:2 * T] == 0).all() and (out[T:2 * T] == 0).all()
         assert (m[T:2 * T] == tatt.NEG_INF).all()
         assert (dh[T:2 * T] == 0).all() and (df2[T:2 * T] == 0).all()
+        assert (df1[T:2 * T] == 0).all()
 
 
 def test_coo_default_precision_is_near_f32(cuda):
@@ -445,9 +445,9 @@ COO_ITEM_CASES = [("star", 9000, 256, 8, 8, None, None),
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("case", COO_ITEM_CASES, ids=str)
 def test_coo_work_items_match_plain(cuda, case, precision):
-    """The forward and the column pass over their work items, hub rows
-    split and merged, against the plain versions; the row pass beside them
-    on the same payload."""
+    """The forward, the row pass (over the forward's items) and the column
+    pass over their work items, hub rows split and merged, against the
+    plain versions."""
     graph, n, T, H, F, budget, warps = case
     a = (_star_support(n, 5200, 21) if graph == "star"
          else _skewed_support(n, 22))
@@ -467,17 +467,18 @@ def test_coo_work_items_match_plain(cuda, case, precision):
                           n_pad) for _ in range(2))
     kw = dict(num_heads=H, feat=F, precision=precision)
     tol = GAT_TOL if precision == "highest" else BF16_TOL
-    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_col.launches)
+    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
+                tcoo.coo_bwd_col.launches)
     out, m, l = tcoo.coo_fwd_stats(ac, f1, f2, h, items=items["fwd"],
                                    warps=warps, **kw)
     ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
     d = tatt.head_dots(g, ref[0], H, F)
     bwd = (ac, f1, f2, h, g, *ref[1:], d)
     dh, df2 = tcoo.coo_bwd_col(*bwd, items=items["col"], warps=warps, **kw)
-    df1 = tcoo.coo_bwd_row(*bwd, **kw)
+    df1 = tcoo.coo_bwd_row(*bwd, items=items["fwd"], warps=warps, **kw)
     torch.cuda.synchronize()
-    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_col.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
+            tcoo.coo_bwd_col.launches) == tuple(c + 1 for c in launches)
     _close(out, ref[0], tol)
     for got, want in zip((m, l), ref[1:]):  # f32 statistics either way
         _close(got, want, GAT_TOL)
@@ -489,7 +490,7 @@ def test_coo_work_items_match_plain(cuda, case, precision):
     empty[:n] = torch.from_numpy(np.diff(a.indptr) == 0).to(cuda)
     assert empty[n:].all() and (graph != "star" or empty[40:80].all())
     assert (m[empty] == tatt.NEG_INF).all() and (l[empty] == 0).all()
-    assert (out[empty] == 0).all()
+    assert (out[empty] == 0).all() and (df1[empty] == 0).all()
     no_src = torch.ones(n_pad, dtype=torch.bool, device=cuda)
     no_src[:n] = torch.from_numpy(np.diff(a.tocsc().indptr) == 0).to(cuda)
     assert (dh[no_src] == 0).all() and (df2[no_src] == 0).all()
@@ -509,6 +510,82 @@ def test_coo_work_items_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="'col' work items"):
         tcoo.coo_bwd_col(ac, f, f, h, h, f, f, f, num_heads=2, feat=8,
                          items=tcoo.edge_items(ac, "fwd"))
+
+
+# (B, n, H, F, hub edges): a star hub column cut into pieces beside block
+# row and column 1 without an edge; layer 2 (1 head of 7) and the limit
+# H * F = 512; several head passes (H = 12)
+MASK_COL_CASES = [(256, 2708, 8, 8, 1500), (256, 2708, 1, 7, 1500),
+                  (128, 900, 1, 512, 500), (128, 900, 12, 5, 500)]
+
+
+@pytest.mark.parametrize("case", MASK_COL_CASES, ids=str)
+def test_gat_bwd_col_walks_the_masks_column_lists(cuda, case):
+    """B5's column pass over per-column lists built from the mask, a hub
+    column split and merged, against its plain version; columns without an
+    edge get dh = df2 = 0 exactly."""
+    B, n, H, F, hub = case
+    a = _star_support(n, hub, 31).tolil()
+    a[B:2 * B, :] = 0
+    a[:, B:2 * B] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    bsr = SparseMatrix.from_scipy(a, backend="bsr", block_size=B,
+                                  device=cuda).bsr
+    n_pad = bsr.n_row_blocks * B
+    it = tatt.mask_col_items(bsr)
+    assert it.n_split > 0 and 0 in it.split_rows.tolist()
+    ptr, dst = tatt.mask_col_lists(bsr)
+    assert int(ptr[-1]) == a.nnz == dst.numel()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    kw = dict(num_heads=H, feat=F)
+    out, m, l = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
+    bwd = (bsr, f1, f2, h, g, m, l, tatt.head_dots(g, out, H, F))
+    before = tatt.gat_bwd_col.launches
+    dh, df2 = tatt.gat_bwd_col(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert tatt.gat_bwd_col.launches == before + 1
+    for got, want in zip((dh, df2), tatt.gat_bwd_col_plain(*bwd, **kw)):
+        _close(got, want, GAT_TOL)
+    no_src = torch.from_numpy(np.diff(ptr.cpu().numpy()) == 0).to(cuda)
+    assert no_src[B:2 * B].all() and no_src[n:].all()
+    assert (dh[no_src] == 0).all() and (df2[no_src] == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["coo_bwd_row", "gat_bwd_col"])
+def test_split_row_passes_repeat_bitwise(cuda, kernel):
+    """The merge sums a split row's pieces in piece order, with no atomics:
+    two calls on the same inputs give the same bits."""
+    n, H, F = 6000, 8, 8
+    a = _star_support(n, 5200, 32)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if kernel == "coo_bwd_row":
+        pay = tcoo.build_attn_coo(a, device=cuda)
+        n_pad = pay.n_tiles * pay.tile
+        assert tcoo.edge_items(pay, "fwd").n_split > 0
+        fwd, run = tcoo.coo_fwd_stats_plain, tcoo.coo_bwd_row
+    else:
+        pay = SparseMatrix.from_scipy(a, backend="bsr", block_size=256,
+                                      device=cuda).bsr
+        n_pad = pay.n_row_blocks * 256
+        assert tatt.mask_col_items(pay).n_split > 0
+        fwd, run = tatt.gat_fwd_stats_plain, tatt.gat_bwd_col
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    kw = dict(num_heads=H, feat=F)
+    out, m, l = fwd(pay, f1, f2, h, **kw)
+    bwd = (pay, f1, f2, h, g, m, l, tatt.head_dots(g, out, H, F))
+    first = run(*bwd, **kw)
+    again = run(*bwd, **kw)
+    for x, y in zip(*((r if isinstance(r, tuple) else (r,))
+                      for r in (first, again))):
+        assert torch.equal(x, y)
 
 
 # (n, m, H, fw, augmented, hub rows); m != n is a rectangular support
