@@ -33,10 +33,14 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    Cora-shaped synthetic graph (2,708 nodes, 5,429 edges, self-looped,
    256-blocks) at both GAT layers' widths (8 heads of 8, 1 head of 7), and
    as timing shapes on its hub-free twin and on the 10K graph forced to
-   256-blocks; the column pass walks per-column edge lists built once from
-   the mask: each graph's line prints the lists' build seconds, and each
-   gat_bwd_col case its work items and its device time in a CUDA graph
-   beside the eager call's;
+   256-blocks; the kernels walk per-row (forward, row pass) and per-column
+   (column pass) edge lists built once from one scan of the mask: each
+   graph's line prints the lists' build seconds (``row_list_build_s``,
+   with the scan; ``col_list_build_s``), and each case its work items,
+   whether its rows allow 16-byte loads, and its device time in a CUDA
+   graph beside the eager call's; at the Cora-shaped graph's layer 1 the
+   forward's and row pass's sweep (``mask_row_sweep`` lines: 64, 128 and
+   256 edges an item at 4 warps, row cost 16);
 6. trains GAT (Cora's published configuration) for 5 epochs through the
    CLI on the Cora-shaped graph written as planetoid files, with
    ``--fused_attention --attn_drop 0`` (training and eval launch all three
@@ -51,7 +55,8 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    gat_coo_bwd_col) in f32 and, against the f32 plain version at a looser
    bound, in bf16 ("default"), and the weighted gather-scatter combine
    (gscatter_weighted) in the four combines of a training step, each case
-   with the combine's work items and its largest item's slots, and at the
+   with the combine's work items and its largest item's slots and its
+   device time in a CUDA graph beside the eager call's, and at the
    10K graph's layer 1 the combine's sweep (``combine_sweep`` lines: the
    gather tables' tile x the warps of a thread block, forward and dh);
    the three COO-chunk kernels walk work items over per-row (forward, row
@@ -99,9 +104,10 @@ Every phase line carries its seconds (``"s"``). Any failure raises.
 
 compares this tree with another commit unpacked at DIR (``git archive``),
 in turns DIR, this, this, DIR, twice: the COO-chunk kernels at the 10K
-graph's layer 1, the BSR column pass at the Cora-shaped graph's layer 1
-and the ``--attn_impl coo`` GAT epoch at 10K, then one profiled epoch
-window (``--profile_dir``, summarized by ``trace_summary``) of each.
+graph's layer 1, B5's three kernels at the Cora-shaped graph's layer 1,
+the Cora-shaped BSR GAT epoch (``--attn_drop 0``) and the ``--attn_impl
+coo`` GAT epoch at 10K, then one profiled epoch window (``--profile_dir``,
+summarized by ``trace_summary``) of each epoch in each tree.
 """
 
 from __future__ import annotations
@@ -745,6 +751,61 @@ def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+# the forward's and row pass's items over the mask's per-row lists at the
+# Cora-shaped graph's layer 1: edges an item at 4 warps, row cost 16
+SWEEP_MASK_ROW_BUDGETS = (64, 128, 256)
+
+
+def _mask_row_run(kernel, bsr, f1, f2, h, bwd, H, F, it, warps):
+    """One launch of the BSR forward's or row pass's item kernel over the
+    mask's per-row lists in the items ``it`` with ``warps`` items a block:
+    what the wrapper launches, at another item geometry (the sweep)."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import attention as att
+    from h2gcn_tpu_torch.sparse.edge_items import launch_items
+
+    ptr, src = att.mask_row_lists(bsr)
+    n_pad, kw = h.shape[0], dict(num_heads=H, feat=F, slope=0.2,
+                                 precision="highest", warps=warps)
+    if kernel == "gat_fwd_stats":
+        out = torch.empty(n_pad, H * F, device=h.device)
+        m, l = (torch.empty(n_pad, H, device=h.device) for _ in range(2))
+        launch_items(att.gat_fwd_stats, "h2gcn_gat_coo_fwd", ptr, src, it,
+                     (f1, f2, h, out, m, l), H * (2 + F), **kw)
+        return out, m, l
+    df1 = torch.empty(n_pad, H, device=h.device)
+    launch_items(att.gat_bwd_row, "h2gcn_gat_coo_bwd_row", ptr, src, it,
+                 (*bwd[1:], df1), H, **kw)
+    return df1
+
+
+def mask_row_sweep(bsr, f1, f2, h, bwd, H, F, refs):
+    """B5's forward and row pass over the mask's per-row lists at
+    ``SWEEP_MASK_ROW_BUDGETS`` edges an item, 4 warps, row cost 16
+    (``mask_row_sweep`` lines, device ms in a CUDA graph): whether the
+    COO-chunk payload's defaults hold on the mask's lists. Each point is
+    held against the plain version's ``refs`` first."""
+    from h2gcn_tpu_torch.sparse import attention as att
+
+    for kernel in ("gat_fwd_stats", "gat_bwd_row"):
+        for budget in SWEEP_MASK_ROW_BUDGETS:
+            t0 = time.perf_counter()
+            it = att.mask_row_items(bsr, budget)
+
+            def run(kernel=kernel, it=it):
+                return _mask_row_run(kernel, bsr, f1, f2, h, bwd, H, F, it,
+                                     4)
+
+            err, tol = _max_err(f"{kernel} mask_row_sweep {budget}",
+                                _tuple(run()), refs[kernel], TOL)
+            emit(dict(_coo_items_shape(kernel, it, H, F, 4),
+                      mask_row_sweep=kernel, graph="cora_shaped", H=H, F=F,
+                      max_abs_err=err, tol=tol,
+                      device_ms=time_graph_ms(run),
+                      s=time.perf_counter() - t0))
+
+
 def check_gat_kernels(device):
     """Phase 5: the GAT attention kernels against their plain versions,
     timed. Returns {kernel: [case dicts]}."""
@@ -753,8 +814,8 @@ def check_gat_kernels(device):
     from h2gcn_tpu_torch.sparse import SparseMatrix
     from h2gcn_tpu_torch.sparse import attention as att
 
-    # the same Cora shape without hubs tells the mask scan (the same 121
-    # blocks) from the serial walk of a hub row
+    # the same Cora shape without hubs tells the walk of a hub row (split
+    # into pieces) from that of the other rows
     graphs = {"cora_shaped": self_looped(cora_graph()),
               "cora_uniform": self_looped(cora_graph(skew=0.0)),
               "syn10k": self_looped(build_graph())}
@@ -766,17 +827,26 @@ def check_gat_kernels(device):
                                      device=device)
         bsr, n, E = sm.bsr, support.shape[0], support.nnz
         n_pad = bsr.n_row_blocks * bsr.block_size
-        # the column pass's per-column lists and items, built once from the
-        # mask on the card
+        # the kernels' per-row and per-column lists, built once on the card
+        # from one scan of the mask, and their work items: the row lists'
+        # seconds include the scan and both lists' sorts, the column
+        # lists' only their items
+        t1 = time.perf_counter()
+        row_items = att.mask_row_items(bsr)
+        torch.cuda.synchronize()
+        row_s = time.perf_counter() - t1
         t1 = time.perf_counter()
         col_items = att.mask_col_items(bsr)
         torch.cuda.synchronize()
-        list_s = time.perf_counter() - t1
+        col_s = time.perf_counter() - t1
+        items = {"gat_fwd_stats": row_items, "gat_bwd_row": row_items,
+                 "gat_bwd_col": col_items}
         emit({"graph": gname, "n": n, "support_nnz": E, "block_size": 256,
               "max_row_nnz": int(np.diff(support.indptr).max()),
               "blocks": bsr.num_blocks,
               "mask_bytes": bsr.blocks.numel() * 4,
-              "col_list_build_s": list_s,
+              "row_list_build_s": row_s, "col_list_build_s": col_s,
+              "row_list_edges": int(att.mask_row_lists(bsr)[1].numel()),
               "col_list_edges": int(att.mask_col_lists(bsr)[1].numel()),
               "s": time.perf_counter() - t0})
         for H, F in GAT_WIDTHS:
@@ -803,27 +873,32 @@ def check_gat_kernels(device):
                     lambda: att.gat_bwd_col(*bwd, **kw),
                     lambda: att.gat_bwd_col_plain(*bwd, **kw)),
             }
+            refs = {}
             for kernel, (run, plain) in calls.items():
+                refs[kernel] = _tuple(plain())
                 err, tol = _max_err(f"{kernel} {gname} H={H} F={F}",
-                                    _tuple(run()), _tuple(plain()), TOL)
+                                    _tuple(run()), refs[kernel], TOL)
                 torch.cuda.synchronize()
                 bound_ms, bound_by = _gat_bounds(kernel, E, n, H, F)
+                # each walks its lists in work items; the eager call is
+                # bound by the wrapper's host work, so the device time is
+                # taken in a CUDA graph
                 case = dict(kernel=kernel, graph=gname, n=n, support_nnz=E,
                             H=H, F=F, max_abs_err=err, tol=tol,
                             kernel_ms=time_ms(run, 20),
+                            device_ms=time_graph_ms(run),
                             plain_ms=time_ms(plain, 5),
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None,
-                            s=time.perf_counter() - t0)
-                if kernel == "gat_bwd_col":
-                    # the item kernel over the mask's lists; its eager call
-                    # is bound by the wrapper's host work
-                    case.update(_coo_items_shape(kernel, col_items, H, F),
-                                device_ms=time_graph_ms(run),
-                                list_build_s=list_s,
-                                s=time.perf_counter() - t0)
+                            # 16-byte rows: the kernels' vector loads
+                            aligned16=all(t.data_ptr() % 16 == 0
+                                          for t in (h, g)),
+                            **_coo_items_shape(kernel, items[kernel], H, F))
+                case["s"] = time.perf_counter() - t0
                 emit(case)
                 results[kernel].append(case)
+            if gname == "cora_shaped" and H == 8:
+                mask_row_sweep(bsr, f1, f2, h, bwd, H, F, refs)
     return results
 
 
@@ -917,6 +992,8 @@ _COO_ITEMS = {"coo_fwd_stats": "fwd", "coo_bwd_row": "fwd",
 _PIECE_FLOATS = {"coo_fwd_stats": lambda H, F: H * (2 + F),
                  "coo_bwd_row": lambda H, F: H,
                  "coo_bwd_col": lambda H, F: H * (1 + F),
+                 "gat_fwd_stats": lambda H, F: H * (2 + F),
+                 "gat_bwd_row": lambda H, F: H,
                  "gat_bwd_col": lambda H, F: H * (1 + F)}
 
 
@@ -1091,6 +1168,10 @@ def check_gat_scale_kernels(device):
                             graph=gname, n=n, support_nnz=E, H=H, F=F,
                             x_cols=x.shape[1], max_abs_err=err, tol=tol,
                             kernel_ms=time_ms(run, 20),
+                            # the eager call is bound by the wrapper's host
+                            # work; in a CUDA graph the launches run back
+                            # to back
+                            device_ms=time_graph_ms(run),
                             plain_ms=time_ms(plain, 5),
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=(_bmm_library_ms(ga, wf, x, H, F)
@@ -1231,11 +1312,12 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
 # One turn of the A/B comparison, run by ``python3 -c`` from the root of a
 # tree (this one, or another commit's unpacked beside it): the COO-chunk
 # kernels at the 10K graph's layer 1, "highest" (CUDA-event means of 20
-# eager calls), and B5's column pass at the Cora-shaped graph's layer 1
+# eager calls), and B5's three kernels at the Cora-shaped graph's layer 1
 # (also as device time in a CUDA graph), then GAT for EPOCHS epochs through
-# the CLI with
-# ``--attn_impl coo``; with ``profile`` on argv, that CLI run is profiled
-# instead (epochs 3-5) and summarized. Uses only what both trees have.
+# the CLI on the Cora-shaped graph (the BSR payload, ``--attn_drop 0``) and
+# with ``--attn_impl coo`` on the 10K graph; with ``profile`` on argv, those
+# two CLI runs are profiled instead (epochs 3-5) and summarized. Uses only
+# what both trees have.
 _AB_TURN = r"""
 import json, os, shutil, sys, tempfile
 sys.path.insert(0, os.getcwd())
@@ -1264,8 +1346,8 @@ c.emit({"ab_kernels_ms": {
                                20),
     "coo_bwd_row": c.time_ms(lambda: coo.coo_bwd_row(*bwd, **kw), 20),
     "coo_bwd_col": c.time_ms(lambda: coo.coo_bwd_col(*bwd, **kw), 20)}})
-# B5's column pass at the Cora-shaped graph's layer 1, eager and in a CUDA
-# graph (both trees' wrapper launches without host synchronization)
+# B5's kernels at the Cora-shaped graph's layer 1, eager and in a CUDA
+# graph (both trees' wrappers launch without host synchronization)
 cora = c.self_looped(c.cora_graph())
 bsr = SparseMatrix.from_scipy(cora, backend="bsr", block_size=256,
                               device=dev).bsr
@@ -1276,25 +1358,34 @@ ch, cg = (att.pad_rows(torch.randn(nc, H * F, generator=gen, device=dev),
                        ncp) for _ in range(2))
 cout, cm, cl = att.gat_fwd_stats_plain(bsr, cf1, cf2, ch, **kw)
 cbwd = (bsr, cf1, cf2, ch, cg, cm, cl, att.head_dots(cg, cout, H, F))
-c.emit({"ab_gat_bwd_col": {
-    "kernel_ms": c.time_ms(lambda: att.gat_bwd_col(*cbwd, **kw), 20),
-    "device_ms": c.time_graph_ms(lambda: att.gat_bwd_col(*cbwd, **kw))}})
+b5 = {"gat_fwd_stats": lambda: att.gat_fwd_stats(bsr, cf1, cf2, ch, **kw),
+      "gat_bwd_row": lambda: att.gat_bwd_row(*cbwd, **kw),
+      "gat_bwd_col": lambda: att.gat_bwd_col(*cbwd, **kw)}
+c.emit({"ab_b5": {k: {"kernel_ms": c.time_ms(fn, 20),
+                      "device_ms": c.time_graph_ms(fn)}
+                  for k, fn in b5.items()}})
 _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 data = tempfile.mkdtemp(prefix="ab_", dir=_build.BUILD_DIR)
 try:
+    c.write_planetoid(data, "syncora", c.cora_graph())
     c.write_planetoid(data, "syn10k", c.build_graph())
+    runs = (("syncora", ()), ("syn10k", ("--attn_impl", "coo")))
     if "profile" in sys.argv:
-        trace = os.path.join(data, "trace")
-        run_experiments.main([
-            "GAT", "planetoid", "--dataset", "ind.syn10k", "--dataset_path",
-            data, "--fused_attention", "--attn_drop", "0", "--epochs",
-            str(c.EPOCHS), "--random_seed", "123", "--attn_impl", "coo",
-            "--checkpoint_dir", os.path.join(data, "ckpt"), "--profile_dir",
-            trace])
         from h2gcn_tpu_torch import trace_summary
-        with open(os.path.join(trace, "trace.json")) as f:
-            c.emit({"ab_profile": trace_summary.summarize(json.load(f), 3)})
+        for name, extra in runs:
+            trace = os.path.join(data, "trace_" + name)
+            run_experiments.main([
+                "GAT", "planetoid", "--dataset", "ind." + name,
+                "--dataset_path", data, "--fused_attention", "--attn_drop",
+                "0", "--epochs", str(c.EPOCHS), "--random_seed", "123",
+                *extra, "--checkpoint_dir", os.path.join(data, "ckpt"),
+                "--profile_dir", trace])
+            with open(os.path.join(trace, "trace.json")) as f:
+                c.emit({"ab_profile": trace_summary.summarize(json.load(f),
+                                                              3),
+                        "graph": name})
     else:
+        c.run_gat_cli(data, "syncora", dev, 0)
         c.run_gat_cli(data, "syn10k", dev, 0, route="coo", attn_impl="coo")
 finally:
     shutil.rmtree(data, ignore_errors=True)
@@ -1302,12 +1393,12 @@ finally:
 
 
 def ab_main(parent: str) -> int:
-    """``python3 chip_smoke.py --ab DIR``: the COO-chunk kernels and the
-    ``--attn_impl coo`` GAT epoch at 10K in this tree and in the tree at
-    DIR (another commit, unpacked), in turns: DIR, this, this, DIR, twice
-    (the epoch is host-bound, and the host's speed drifts within a call);
-    then one profiled run of each. Prints each turn's lines tagged with its
-    tree; fails if a turn fails."""
+    """``python3 chip_smoke.py --ab DIR``: the attention kernels, the Cora
+    BSR GAT epoch and the ``--attn_impl coo`` GAT epoch at 10K in this tree
+    and in the tree at DIR (another commit, unpacked), in turns: DIR, this,
+    this, DIR, twice (the epochs are host-bound, and the host's speed
+    drifts within a call); then one profiled run of each. Prints each
+    turn's lines tagged with its tree; fails if a turn fails."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1433,9 +1524,9 @@ def main() -> int:
                                  "h2gcn_tpu/sparse/pallas_gscatter.py:251"),
                "bsr_spmm": ("h2gcn_tpu_torch/csrc/bsr_spmm.cu",
                             "h2gcn_tpu/sparse/pallas_spmm.py:34"),
-               "gat_fwd_stats": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+               "gat_fwd_stats": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
                                  "h2gcn_tpu/sparse/pallas_attention.py:143"),
-               "gat_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention.cu",
+               "gat_bwd_row": ("h2gcn_tpu_torch/csrc/gat_attention_coo.cu",
                                "h2gcn_tpu/sparse/pallas_attention.py:300"),
                "gat_bwd_col": ("h2gcn_tpu_torch/csrc/gat_attention_col.cu",
                                "h2gcn_tpu/sparse/pallas_attention.py:326"),

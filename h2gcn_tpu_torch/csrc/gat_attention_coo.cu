@@ -1,15 +1,23 @@
-// Fused multi-head graph attention over the COO-chunk payload for Hopper:
-// the forward with its softmax statistics and the row backward pass (both
-// walk the per-row edge lists); the column backward pass is in
-// gat_attention_col.cu.
+// Fused multi-head graph attention over per-row edge lists for Hopper: the
+// forward with its softmax statistics and the row backward pass; the column
+// backward pass is in gat_attention_col.cu. Both kernels serve the two
+// payloads that hold such lists:
+//   - the COO-chunk tables (sparse/attention_coo.py: coo_fwd_stats,
+//     coo_bwd_row), whose lists the host sorts once from the chunk tables;
+//   - the BSR mask (sparse/attention.py: gat_fwd_stats, gat_bwd_row), whose
+//     lists are built once from the mask's own entries > 0.
 //
-// Replaces the TPU kernels of h2gcn_tpu/sparse/pallas_attention_coo.py:
-//   gat_coo_fwd      _make_fwd_kernel (_fwd_fn)
-//   gat_coo_bwd_row  _make_bwd_row_kernel (_bwd_row_fn)
-// They compute what the BSR kernels of gat_attention.cu compute (the formulas
-// are in gat_edge.cuh); only the edge source differs. The TPU kernels
-// densify a T x T mask per chunk with one-hot matrix products, an MXU trick;
-// here nothing is densified.
+// Replaces the TPU kernels
+//   h2gcn_tpu/sparse/pallas_attention_coo.py
+//     gat_coo_fwd      _make_fwd_kernel (_fwd_fn)
+//     gat_coo_bwd_row  _make_bwd_row_kernel (_bwd_row_fn)
+//   h2gcn_tpu/sparse/pallas_attention.py
+//     gat_coo_fwd      _make_fwd_stats_kernel (_fwd_stats_call)
+//     gat_coo_bwd_row  _make_bwd_row_kernel (pass R)
+// (the formulas are in gat_edge.cuh). The TPU kernels densify a T x T mask
+// per chunk with one-hot matrix products, or walk the BSR mask's dense
+// blocks, both MXU shapes; here nothing is densified and the mask is never
+// read.
 //
 // What bounds them on the H100 is latency, not bytes or flops: the least
 // work is O(edges * H * F) flops on O(edges) gathered rows that sit in the
@@ -17,9 +25,9 @@
 // Their first design (one block an output tile, a counting sort of the
 // tile's slots on every launch, each warp walking whole rows one edge at a
 // time) left most SMs idle behind the hub tile and waited on a chain of
-// dependent loads per edge. Now both walk the per-row lists that the host
-// sorts once from the chunk tables (sparse/attention_coo.py:
-// build_attn_coo), in the same work items, batched as gat_items.cuh says:
+// dependent loads per edge (the BSR mask's first kernels, one warp a row,
+// scanned every 256 KB mask block of the row's block row). Now both walk
+// the per-row lists in the same work items, batched as gat_items.cuh says:
 // - The forward rescales (m, l, acc) once a batch, not once an edge; the
 //   pieces of a split row write (m, l, acc) and the merge rescales each by
 //   exp(m_p - m).

@@ -1,7 +1,7 @@
 // Batched walks of per-row (or per-column) edge lists in work items, shared
-// by the attention kernels that walk them: the COO-chunk forward and row pass
-// (gat_attention_coo.cu) and the column pass (gat_attention_col.cu), which
-// serves both the COO-chunk payload and the BSR mask's per-column lists.
+// by every attention kernel: the forward and row pass (gat_attention_coo.cu)
+// and the column pass (gat_attention_col.cu), each serving both the
+// COO-chunk payload and the BSR mask's lists.
 //
 // - A list is ptr [n_pad + 1] / other [E]: the edges of row r have their
 //   other ends at other[ptr[r] .. ptr[r + 1]). The host builds the lists

@@ -318,7 +318,8 @@ def add_subparser_args(parser):
     group.add_argument("--patience", default=100, type=int)
     group.add_argument("--fused_attention", action="store_true",
                        help="Use the fused attention payloads: the BSR mask "
-                            "kernels (csrc/gat_attention.cu) within the BSR "
+                            "(edge lists built once from it, walked by "
+                            "csrc/gat_attention_{coo,col}.cu) within the BSR "
                             "budget, past it the gather payload "
                             "(csrc/gscatter_weighted.cu) or the COO-chunk "
                             "kernels (csrc/gat_attention_coo.cu); with the "

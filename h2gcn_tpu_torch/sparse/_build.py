@@ -36,8 +36,6 @@ _SIGNATURES = {
                            + [_I] * 6 + [_P],
     "h2gcn_bsr_spmm": [_P, _I] + [_P] * 3 + [_I, _P, _I, _I, _I, _P],
     "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 8 + [_P],
-    "h2gcn_gat_fwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    "h2gcn_gat_bwd_row": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "h2gcn_gat_coo_fwd": [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P],
     "h2gcn_gat_coo_bwd_row": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
     "h2gcn_gat_coo_bwd_col": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],

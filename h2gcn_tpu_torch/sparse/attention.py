@@ -9,16 +9,18 @@ axis), over the edges ``(i, j)`` of a binary BSR mask (entries ``> 0``):
     out_i = sum_j softmax_j(e_ij) h[j, kF:(k+1)F]
 
 ``f1, f2: [N, H]``; ``h: [N, H*F]``. Three kernels compute it without any
-edge-sized intermediate:
+edge-sized intermediate, each walking edge lists built once from the
+mask's own entries in work items that split a hub row or column
+(``sparse/edge_items.py``); the mask itself is read once, to build the
+lists (:func:`mask_row_lists`, :func:`mask_col_lists`):
 
-- :func:`gat_fwd_stats` (``csrc/gat_attention.cu``): ``out`` and the row
-  max ``m`` and normalizer ``l``;
+- :func:`gat_fwd_stats` (``csrc/gat_attention_coo.cu``, shared with the
+  COO-chunk payload): ``out`` and the row max ``m`` and normalizer ``l``,
+  over the per-row lists (:func:`mask_row_items`);
 - :func:`gat_bwd_row` (same file): ``df1``, recomputing alpha from ``m``
-  and ``l``;
-- :func:`gat_bwd_col` (``csrc/gat_attention_col.cu``, shared with the
-  COO-chunk payload): ``dh`` and ``df2``, walking per-column edge lists
-  built once from the mask's entries (:func:`mask_col_lists`) in work
-  items that split a hub column (:func:`mask_col_items`).
+  and ``l``, over the same lists and items;
+- :func:`gat_bwd_col` (``csrc/gat_attention_col.cu``, also shared): ``dh``
+  and ``df2``, over the per-column lists (:func:`mask_col_items`).
 
 Each takes padded operands (``n_pad = n_blocks * B`` rows) and returns
 padded outputs. A CPU tensor takes the plain version beside it; a CUDA
@@ -33,11 +35,10 @@ from typing import Optional
 
 import torch
 
-from . import _build
 from .edge_items import EdgeItems, cached_items, launch_items
 
 NEG_INF = -1e30  # the JAX package's sentinel; -inf would give NaN rescales
-MAX_HF = 512  # the most H * F csrc/gat_attention.cu takes
+MAX_HF = 512  # the most H * F the item kernels take (gat_edge.cuh)
 
 
 def _leaky(pre, slope):
@@ -171,37 +172,63 @@ def gat_bwd_col_plain(bsr, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
 
 
 # ---------------------------------------------------------------------------
-# The column pass's edge lists, from the mask itself.
+# The kernels' edge lists, from the mask itself.
 # ---------------------------------------------------------------------------
 
 
-def mask_col_lists(bsr):
-    """The mask's per-column edge lists ``(ptr [n_pad + 1], dst [E])``,
-    int32 on the mask's device: every block entry > 0 taken through
-    ``block_rows`` / ``block_cols`` to its (row, column), grouped by column
-    with rows ascending. These are exactly the edges the plain version and
-    the JAX kernel read. Built once, on the mask's device, and kept in
-    ``bsr.schedules``."""
-    if "gat_col_lists" not in bsr.schedules:
+def _mask_lists(bsr):
+    """Both kinds of edge lists, from one scan of the mask (at the 10K
+    graph the mask is 414 MB; a second scan would cost more than the
+    lists), kept in ``bsr.schedules``."""
+    if "gat_row_lists" not in bsr.schedules:
         B, n_pad = _geometry(bsr)
         b, il, jl = torch.nonzero(bsr.blocks > 0, as_tuple=True)
         i = bsr.block_rows.to(torch.int64)[b] * B + il
         j = bsr.block_cols.to(torch.int64)[b] * B + jl
-        order = torch.argsort(j * n_pad + i)  # unique keys: any sort will do
-        ptr = torch.zeros(n_pad + 1, dtype=torch.int64, device=j.device)
-        ptr[1:] = torch.cumsum(torch.bincount(j, minlength=n_pad), 0)
-        bsr.schedules["gat_col_lists"] = (ptr.to(torch.int32),
-                                          i[order].to(torch.int32))
-    return bsr.schedules["gat_col_lists"]
+        for name, key, other in (("gat_row_lists", i, j),
+                                 ("gat_col_lists", j, i)):
+            # unique keys: any sort will do
+            order = torch.argsort(key * n_pad + other)
+            ptr = torch.zeros(n_pad + 1, dtype=torch.int64, device=key.device)
+            ptr[1:] = torch.cumsum(torch.bincount(key, minlength=n_pad), 0)
+            bsr.schedules[name] = (ptr.to(torch.int32),
+                                   other[order].to(torch.int32))
+    return bsr.schedules
+
+
+def mask_row_lists(bsr):
+    """The mask's per-row edge lists ``(ptr [n_pad + 1], src [E])``, int32
+    on the mask's device: every block entry > 0 taken through
+    ``block_rows`` / ``block_cols`` to its (row, column), grouped by row
+    with columns ascending, the order in which the plain version and the
+    JAX kernel walk a row's blocks. These are exactly the edges they read.
+    Built once, on the mask's device, with :func:`mask_col_lists` from the
+    same scan, and kept in ``bsr.schedules``."""
+    return _mask_lists(bsr)["gat_row_lists"]
+
+
+def mask_col_lists(bsr):
+    """The mask's per-column edge lists ``(ptr [n_pad + 1], dst [E])``,
+    int32 on the mask's device: the entries of :func:`mask_row_lists`
+    grouped by column with rows ascending; built with them."""
+    return _mask_lists(bsr)["gat_col_lists"]
+
+
+def mask_row_items(bsr, budget: Optional[int] = None,
+                   row_cost: Optional[int] = None) -> EdgeItems:
+    """The forward's and row pass's work items over :func:`mask_row_lists`
+    at ``budget`` edges an item and ``row_cost`` (the COO-chunk payload's
+    defaults, :data:`~.edge_items.EDGE_BUDGET` and
+    :data:`~.edge_items.ROW_COST`), built once and kept in
+    ``bsr.schedules``."""
+    ptr, _ = mask_row_lists(bsr)
+    return cached_items(bsr.schedules, ptr, "fwd", budget, row_cost)
 
 
 def mask_col_items(bsr, budget: Optional[int] = None,
                    row_cost: Optional[int] = None) -> EdgeItems:
-    """The column pass's work items over :func:`mask_col_lists` at
-    ``budget`` edges an item and ``row_cost`` (the COO-chunk payload's
-    defaults, :data:`~.edge_items.EDGE_BUDGET` and
-    :data:`~.edge_items.ROW_COST`), built once and kept in
-    ``bsr.schedules``."""
+    """The column pass's work items over :func:`mask_col_lists`, as
+    :func:`mask_row_items`."""
     ptr, _ = mask_col_lists(bsr)
     return cached_items(bsr.schedules, ptr, "col", budget, row_cost)
 
@@ -239,10 +266,6 @@ def _check(name, bsr, num_heads, feat, **tensors):
     return B, n_pad
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _on_cuda(name, t):
     if t.device.type == "cpu":
         return False
@@ -255,24 +278,22 @@ def gat_fwd_stats(bsr, f1p, f2p, hp, *, num_heads: int, feat: int,
                   slope: float = 0.2):
     """Forward with stats on padded operands -> ``(out, m, l)``. A CPU
     tensor takes :func:`gat_fwd_stats_plain`; a CUDA tensor launches
-    ``h2gcn_gat_fwd`` or raises."""
+    ``h2gcn_gat_coo_fwd`` over the mask's per-row lists
+    (:func:`mask_row_items`) or raises."""
     if not _on_cuda("gat_fwd_stats", hp):
         return gat_fwd_stats_plain(bsr, f1p, f2p, hp, num_heads=num_heads,
                                    feat=feat, slope=slope)
-    B, n_pad = _check("gat_fwd_stats", bsr, num_heads, feat, f1=f1p, f2=f2p,
+    _, n_pad = _check("gat_fwd_stats", bsr, num_heads, feat, f1=f1p, f2=f2p,
                       h=hp)
     out = torch.empty(n_pad, num_heads * feat, dtype=torch.float32,
                       device=hp.device)
     m = torch.empty(n_pad, num_heads, dtype=torch.float32, device=hp.device)
     l = torch.empty_like(m)
-    lib, _ = _build.library()
-    err = lib.h2gcn_gat_fwd(
-        bsr.row_ptr.data_ptr(), bsr.block_cols.data_ptr(),
-        bsr.blocks.data_ptr(), f1p.data_ptr(), f2p.data_ptr(), hp.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), n_pad, B, num_heads,
-        feat, slope, _stream(hp))
-    _build.check(lib, err, "gat_fwd_stats")
-    gat_fwd_stats.launches += 1
+    ptr, src = mask_row_lists(bsr)
+    launch_items(gat_fwd_stats, "h2gcn_gat_coo_fwd", ptr, src,
+                 mask_row_items(bsr), (f1p, f2p, hp, out, m, l),
+                 num_heads * (2 + feat), num_heads=num_heads, feat=feat,
+                 slope=slope, precision="highest", warps=None)
     return out, m, l
 
 
@@ -280,22 +301,20 @@ def gat_bwd_row(bsr, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
                 feat: int, slope: float = 0.2):
     """Row backward pass on padded operands -> ``df1``. A CPU tensor takes
     :func:`gat_bwd_row_plain`; a CUDA tensor launches
-    ``h2gcn_gat_bwd_row`` or raises."""
+    ``h2gcn_gat_coo_bwd_row`` over the forward's lists and items or
+    raises."""
     if not _on_cuda("gat_bwd_row", hp):
         return gat_bwd_row_plain(bsr, f1p, f2p, hp, gp, m, l, d,
                                  num_heads=num_heads, feat=feat, slope=slope)
-    B, n_pad = _check("gat_bwd_row", bsr, num_heads, feat, f1=f1p, f2=f2p,
+    _, n_pad = _check("gat_bwd_row", bsr, num_heads, feat, f1=f1p, f2=f2p,
                       h=hp, g=gp, m=m, l=l, d=d)
     df1 = torch.empty(n_pad, num_heads, dtype=torch.float32,
                       device=hp.device)
-    lib, _ = _build.library()
-    err = lib.h2gcn_gat_bwd_row(
-        bsr.row_ptr.data_ptr(), bsr.block_cols.data_ptr(),
-        bsr.blocks.data_ptr(), f1p.data_ptr(), f2p.data_ptr(), hp.data_ptr(),
-        gp.data_ptr(), m.data_ptr(), l.data_ptr(), d.data_ptr(),
-        df1.data_ptr(), n_pad, B, num_heads, feat, slope, _stream(hp))
-    _build.check(lib, err, "gat_bwd_row")
-    gat_bwd_row.launches += 1
+    ptr, src = mask_row_lists(bsr)
+    launch_items(gat_bwd_row, "h2gcn_gat_coo_bwd_row", ptr, src,
+                 mask_row_items(bsr), (f1p, f2p, hp, gp, m, l, d, df1),
+                 num_heads, num_heads=num_heads, feat=feat, slope=slope,
+                 precision="highest", warps=None)
     return df1
 
 

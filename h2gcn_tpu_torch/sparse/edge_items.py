@@ -1,13 +1,13 @@
 """Per-row (or per-column) edge lists and the work items that the attention
 kernels walk over them.
 
-The COO-chunk forward and row pass walk each destination row's sources
+The forward and row pass walk each destination row's sources
 (``csrc/gat_attention_coo.cu``); the column pass walks each source column's
-destinations (``csrc/gat_attention_col.cu``), for the COO-chunk payload
-(:mod:`.attention_coo`) and for the BSR mask (:mod:`.attention`). One warp
-takes one work item (:func:`build_edge_items`): a run of whole rows within a
-budget of edges, or a piece of a longer row, whose partial state a second
-small launch merges (``csrc/gat_items.cuh``).
+destinations (``csrc/gat_attention_col.cu``); all three for the COO-chunk
+payload (:mod:`.attention_coo`) and for the BSR mask (:mod:`.attention`).
+One warp takes one work item (:func:`build_edge_items`): a run of whole
+rows within a budget of edges, or a piece of a longer row, whose partial
+state a second small launch merges (``csrc/gat_items.cuh``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
               (:mod:`.cootile`): the at-scale path for large graphs, with
               their nodes cluster-ordered (``transforms.cluster_order``).
 ``bsr``       dense B x B blocks: 128-blocks for ``csrc/bsr_spmm.cu``
-              (:mod:`.bsr_spmm`), 256-blocks as the GAT attention mask of
-              ``csrc/gat_attention.cu`` (:mod:`.attention`).
+              (:mod:`.bsr_spmm`), 256-blocks as the GAT attention mask
+              (:mod:`.attention`), whose kernels walk edge lists built
+              once from it.
 ``attn``      the COO arrays plus an O(nnz) fused-attention payload for
               GAT past the BSR budget: gather tables (:mod:`.attention_gather`)
               or COO-chunk tables (:mod:`.attention_coo`). Its SpMM runs on

@@ -6,7 +6,7 @@ test here needs a CUDA GPU and nvcc and skips without them. Tolerance: the
 kernels sum in another order than index_add_ / einsum (atomics, tiles), so
 the error is held at 1e-5 of the output's scale; bf16 rounding is the same
 on both sides. The GAT attention kernels also rescale their online softmax
-edge by edge where the plain versions take each row's max at once, so they
+batch by batch where the plain versions take each row's max at once, so they
 are held at 1e-4 of the output's scale, the gate of chip_smoke.py; so is the
 weighted gather-scatter combine of the gather attention, whose weights come
 from the softmax. The COO-chunk kernels in "default" precision round their
@@ -556,7 +556,51 @@ def test_gat_bwd_col_walks_the_masks_column_lists(cuda, case):
     assert (dh[no_src] == 0).all() and (df2[no_src] == 0).all()
 
 
-@pytest.mark.parametrize("kernel", ["coo_bwd_row", "gat_bwd_col"])
+@pytest.mark.parametrize("case", MASK_COL_CASES, ids=str)
+def test_gat_fwd_and_row_walk_the_masks_row_lists(cuda, case):
+    """B5's forward and row pass over per-row lists built from the mask, a
+    hub row split and merged, against their plain versions; rows without
+    an edge (block row 1, the padding) keep m = -1e30, l = 0, out = 0 and
+    df1 = 0 exactly."""
+    B, n, H, F, hub = case
+    a = _star_support(n, hub, 33).tolil()
+    a[B:2 * B, :] = 0
+    a[:, B:2 * B] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    bsr = SparseMatrix.from_scipy(a, backend="bsr", block_size=B,
+                                  device=cuda).bsr
+    n_pad = bsr.n_row_blocks * B
+    it = tatt.mask_row_items(bsr)
+    assert it.n_split > 0 and 0 in it.split_rows.tolist()
+    ptr, src = tatt.mask_row_lists(bsr)
+    assert int(ptr[-1]) == a.nnz == src.numel()
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
+                            n_pad) for _ in range(2))
+    h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
+                          n_pad) for _ in range(2))
+    kw = dict(num_heads=H, feat=F)
+    launches = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches)
+    got = tatt.gat_fwd_stats(bsr, f1, f2, h, **kw)
+    ref = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
+    bwd = (bsr, f1, f2, h, g, *ref[1:], tatt.head_dots(g, ref[0], H, F))
+    df1 = tatt.gat_bwd_row(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert (tatt.gat_fwd_stats.launches,
+            tatt.gat_bwd_row.launches) == tuple(c + 1 for c in launches)
+    for x, want in zip(got, ref):
+        _close(x, want, GAT_TOL)
+    _close(df1, tatt.gat_bwd_row_plain(*bwd, **kw), GAT_TOL)
+    out, m, l = got
+    no_edge = torch.from_numpy(np.diff(ptr.cpu().numpy()) == 0).to(cuda)
+    assert no_edge[B:2 * B].all() and no_edge[n:].all()
+    assert (m[no_edge] == tatt.NEG_INF).all() and (l[no_edge] == 0).all()
+    assert (out[no_edge] == 0).all() and (df1[no_edge] == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["coo_bwd_row", "gat_bwd_col",
+                                    "gat_bwd_row"])
 def test_split_row_passes_repeat_bitwise(cuda, kernel):
     """The merge sums a split row's pieces in piece order, with no atomics:
     two calls on the same inputs give the same bits."""
@@ -572,8 +616,10 @@ def test_split_row_passes_repeat_bitwise(cuda, kernel):
         pay = SparseMatrix.from_scipy(a, backend="bsr", block_size=256,
                                       device=cuda).bsr
         n_pad = pay.n_row_blocks * 256
-        assert tatt.mask_col_items(pay).n_split > 0
-        fwd, run = tatt.gat_fwd_stats_plain, tatt.gat_bwd_col
+        items = (tatt.mask_col_items if kernel == "gat_bwd_col"
+                 else tatt.mask_row_items)
+        assert items(pay).n_split > 0
+        fwd, run = tatt.gat_fwd_stats_plain, getattr(tatt, kernel)
     f1, f2 = (tatt.pad_rows(torch.randn(n, H, generator=gen, device=cuda),
                             n_pad) for _ in range(2))
     h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
