@@ -96,7 +96,32 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    (at 250K mapped back to the original node order, against the same
    weights through the segment SpMM on the un-reordered graph), and prints
    the epoch time, the host set-up seconds and the peak device memory;
-11. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+11. (``baseline_kernels``) holds the three SpMM kernels (gscatter, BSR,
+   COO-tile) against their plain versions, forward and transpose,
+   "highest", at the baselines' widths and matrices: the 10K graph's
+   self-looped sym_norm(A+I) at F = 7, 16 and 1433 (GCN's classes and
+   hidden units, cheby's raw features), its row-normalized D^-1 A (not
+   symmetric; bp and GraphSAGE's full-neighbor mean) at F = 7, 128 and
+   1433, and the Cora-shaped graph's Chebyshev T_3 (negative values) at
+   F = 16; each case with its eager time, its device time in a CUDA
+   graph (``device_ms``: at narrow widths the eager call measures the
+   wrapper), the plain version's time, its bound and ``torch.sparse.mm``'s
+   time;
+12. (``baselines_cli``) trains each baseline for 5 epochs through the CLI
+   at its published width on the Cora-shaped graph (1,433 features): GCN
+   (``gcn`` through gscatter, BSR and COO-tile; ``cheby`` and
+   ``cheby_concat2`` with max degree 3, ``concat2`` and ``bp`` on one-hot
+   label priors through gscatter; ``mlp``, which aggregates nothing),
+   MixHop's published Cora setup through gscatter and BSR, GraphSAGE
+   sampled (5, 5) and full-neighbor (0, 0), and H2GCN's setup without graph
+   layers (``M64-R-D0.5-MO``); and GCN on the 10K graph. Each line holds
+   the launches (and per epoch), finite losses, a checkpoint, the epoch
+   time (mean and median), the host set-up seconds and the peak device
+   memory, and where the run aggregates through a kernel the trained
+   logits against the segment path; sampled GraphSAGE (a random draw),
+   GCN's ``mlp`` and H2GCN's setup without graph layers launch no SpMM
+   kernel, and are checked to launch none;
+13. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 
@@ -281,14 +306,85 @@ def _library_csr(mat, device):
             mat.shape, check_invariants=True).to(device).to_sparse_csr()
 
 
+def _spmm_fns(kernel):
+    """(run, plain) of one SpMM kernel: ``run(sm, x)`` launches the kernel
+    on ``sm``'s payload, ``plain(sm, x, precision)`` its plain version on
+    the same payload."""
+    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm, bsr_spmm_plain
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm, cootile_spmm_plain
+    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm, gscatter_spmm_plain
+
+    if kernel == "gscatter_spmm":
+        return (lambda a, v: gscatter_spmm(a.gsc, v, precision=a.precision),
+                lambda a, v, prec: gscatter_spmm_plain(a.gsc, v,
+                                                       precision=prec))
+    if kernel == "bsr_spmm":
+        return (lambda a, v: bsr_spmm(a.bsr, v, n_out=a.shape[0],
+                                      precision=a.precision),
+                lambda a, v, prec: bsr_spmm_plain(a.bsr, v, n_out=a.shape[0],
+                                                  precision=prec))
+    return (lambda a, v: cootile_spmm(a.coot, v, precision=a.precision),
+            lambda a, v, prec: cootile_spmm_plain(a.coot, v, precision=prec))
+
+
+def hold_spmm(kernel, mname, sm, F, gen, lib_a, device_time=False, **extra):
+    """One SpMM case: ``spmm`` through ``kernel`` forward and autograd
+    backward (the transpose view's payload) against the plain version on
+    the same payload, the forward timed beside its bound and the library
+    call (with ``device_time`` also in a CUDA graph: at narrow widths the
+    eager call measures the wrapper's host work); each direction emitted
+    as a line with ``extra``. Returns the two case dicts; raises if a
+    direction disagrees."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import spmm
+
+    t0 = time.perf_counter()
+    n, m = sm.shape
+    device = sm.rows.device
+    run, plain = _spmm_fns(kernel)
+    x = torch.randn(m, F, generator=gen, device=device)
+    g = torch.randn(n, F, generator=gen, device=device)
+    xr = x.clone().requires_grad_(True)
+    y = spmm(sm, xr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    cases = []
+    for direction, got, ref in (
+            ("forward", y.detach(), plain(sm, x, sm.precision)),
+            ("backward", xr.grad, plain(sm.transpose_view(), g,
+                                        sm.precision))):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(
+                f"{kernel} {mname} F={F} {sm.precision} {direction}: bad "
+                f"output {tuple(got.shape)}")
+        err = float((got - ref).abs().max())
+        tol = TOL * max(1.0, float(ref.abs().max()))
+        case = dict(kernel=kernel, matrix=mname, nnz=sm.nnz, F=F,
+                    precision=sm.precision, direction=direction,
+                    max_abs_err=err, tol=tol, **extra)
+        if err > tol:
+            emit(case)
+            raise AssertionError(f"{kernel} disagrees with its plain "
+                                 f"version: {case}")
+        if direction == "forward":
+            case.update(_times(kernel, sm, x, lambda: run(sm, x),
+                               lambda a, v: plain(a, v, sm.precision),
+                               lib_a, sm.precision))
+            if device_time:
+                case["device_ms"] = time_graph_ms(lambda: run(sm, x))
+        case["s"] = time.perf_counter() - t0
+        emit(case)
+        cases.append(case)
+    return cases
+
+
 def check_kernels(device):
     """Phase 3: every kernel against its plain version at the path's
     shapes. Returns {kernel: [case dicts]}."""
     import torch
 
-    from h2gcn_tpu_torch.sparse import SparseMatrix, spmm, transforms
-    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm, bsr_spmm_plain
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm, gscatter_spmm_plain
+    from h2gcn_tpu_torch.sparse import SparseMatrix, transforms
 
     adj = build_graph()
     split = transforms.nhood_split(adj, 2)
@@ -301,65 +397,68 @@ def check_kernels(device):
     gen = torch.Generator(device=device).manual_seed(0)
     results = {"gscatter_spmm": [], "bsr_spmm": []}
     for mname, mat in mats.items():
-        n, m = mat.shape
         lib_a = _library_csr(mat, device)
         for kernel in ("gscatter_spmm", "bsr_spmm"):
-            backend = kernel.split("_")[0]
             for precision in ("highest", "default"):
-                sm = SparseMatrix.from_scipy(mat, backend=backend,
+                sm = SparseMatrix.from_scipy(mat, backend=kernel.split("_")[0],
                                              precision=precision,
                                              device=device)
-                smT = sm.transpose_view()
                 for F in (64, 128):
-                    t0 = time.perf_counter()
-                    x = torch.randn(m, F, generator=gen, device=device)
-                    g = torch.randn(n, F, generator=gen, device=device)
-                    if backend == "gscatter":
-                        def run(x=x, sm=sm):
-                            return gscatter_spmm(sm.gsc, x,
-                                                 precision=sm.precision)
-
-                        def plain(a, v, prec=precision):
-                            return gscatter_spmm_plain(a.gsc, v,
-                                                       precision=prec)
-                    else:
-                        def run(x=x, sm=sm):
-                            return bsr_spmm(sm.bsr, x, n_out=n,
-                                            precision=sm.precision)
-
-                        def plain(a, v, prec=precision):
-                            return bsr_spmm_plain(a.bsr, v, n_out=a.shape[0],
-                                                  precision=prec)
-                    xr = x.clone().requires_grad_(True)
-                    y = spmm(sm, xr)
-                    y.backward(g)
-                    torch.cuda.synchronize()
-                    for direction, got, ref in (
-                            ("forward", y.detach(), plain(sm, x)),
-                            ("backward", xr.grad, plain(smT, g))):
-                        if got.shape != ref.shape or not torch.isfinite(got).all():
-                            raise AssertionError(
-                                f"{kernel} {mname} F={F} {precision} "
-                                f"{direction}: bad output {tuple(got.shape)}")
-                        err = float((got - ref).abs().max())
-                        tol = TOL * max(1.0, float(ref.abs().max()))
-                        case = dict(kernel=kernel, matrix=mname, nnz=mat.nnz,
-                                    F=F, precision=precision,
-                                    direction=direction, max_abs_err=err,
-                                    tol=tol)
-                        if err > tol:
-                            emit(case)
-                            raise AssertionError(
-                                f"{kernel} disagrees with its plain version: "
-                                f"{case}")
-                        if direction == "forward":
-                            case.update(_times(kernel, sm, x, run, plain,
-                                               lib_a, precision))
-                        case["s"] = time.perf_counter() - t0
-                        emit(case)
-                        results[kernel].append(case)
+                    results[kernel] += hold_spmm(kernel, mname, sm, F, gen,
+                                                 lib_a)
         if mname == "A2":
             gscatter_sweep(mat, device, gen)
+    return results
+
+
+def baseline_matrices():
+    """The baselines' supports (phase 11): the 10K graph's self-looped
+    sym_norm(A+I) (GCN, MixHop) and row-normalized D^-1 A (bp, GraphSAGE's
+    full-neighbor mean; not symmetric), and the Chebyshev T_3 of the
+    Cora-shaped graph at eigenvalue 2 (negative values, the explicit zeros
+    scipy keeps, much denser than A), each with the widths the baselines
+    aggregate it at."""
+    import scipy.sparse as sp
+
+    from h2gcn_tpu_torch.sparse import transforms
+
+    adj = build_graph()
+    t3 = transforms.chebyshev_polynomials(cora_graph(), 3, eigenvalue=2)[3]
+    return {
+        "A_self_looped": (transforms.normalize(
+            transforms.add_eye(adj)).tocsr(), (7, 16, 1433)),
+        "A_rw": (transforms.normalize(
+            adj, transforms.NType.RW_NORMALIZED).tocsr(), (7, 128, 1433)),
+        "T3_cora": (sp.csr_matrix(t3, dtype=np.float32), (16,)),
+    }
+
+
+def check_baseline_kernels(device):
+    """Phase 11: the three SpMM kernels against their plain versions at the
+    baselines' widths and matrices (:func:`baseline_matrices`), forward and
+    transpose, "highest". Returns {kernel: [case dicts]}."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import SparseMatrix
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    results = {k: [] for k in ("gscatter_spmm", "bsr_spmm", "cootile_spmm")}
+    for mname, (mat, widths) in baseline_matrices().items():
+        t0 = time.perf_counter()
+        lib_a = _library_csr(mat, device)
+        emit({"baseline_matrix": mname, "n": mat.shape[0], "nnz": mat.nnz,
+              "negative": int((mat.data < 0).sum()),
+              "explicit_zeros": int((mat.data == 0).sum()),
+              "s": time.perf_counter() - t0})
+        for kernel in results:
+            sm = SparseMatrix.from_scipy(mat, backend=kernel.split("_")[0],
+                                         device=device)
+            for F in widths:
+                results[kernel] += hold_spmm(kernel, mname, sm, F, gen,
+                                             lib_a, device_time=True,
+                                             baseline=True)
+            del sm
+        torch.cuda.empty_cache()
     return results
 
 
@@ -549,8 +648,7 @@ def check_cootile_kernels(device):
 
     import torch
 
-    from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
-    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm, cootile_spmm_plain
+    from h2gcn_tpu_torch.sparse import SparseMatrix
 
     t0 = time.perf_counter()
     mats = cootile_matrices()
@@ -570,46 +668,8 @@ def check_cootile_kernels(device):
                   build_s=time.perf_counter() - t0))
         for precision in ("highest", "default"):
             s = dataclasses.replace(sm, precision=precision)
-            sT = s.transpose_view()
             for F in (64, 128):
-                t0 = time.perf_counter()
-                x = torch.randn(m, F, generator=gen, device=device)
-                g = torch.randn(n, F, generator=gen, device=device)
-                xr = x.clone().requires_grad_(True)
-                y = spmm(s, xr)
-                y.backward(g)
-                torch.cuda.synchronize()
-
-                def run(x=x, s=s):
-                    return cootile_spmm(s.coot, x, precision=s.precision)
-
-                def plain(a, v, prec=precision):
-                    return cootile_spmm_plain(a.coot, v, precision=prec)
-
-                for direction, got, ref in (
-                        ("forward", y.detach(), plain(s, x)),
-                        ("backward", xr.grad, plain(sT, g))):
-                    if got.shape != ref.shape or not torch.isfinite(got).all():
-                        raise AssertionError(
-                            f"cootile_spmm {mname} F={F} {precision} "
-                            f"{direction}: bad output {tuple(got.shape)}")
-                    err = float((got - ref).abs().max())
-                    tol = TOL * max(1.0, float(ref.abs().max()))
-                    case = dict(kernel="cootile_spmm", matrix=mname,
-                                nnz=sm.nnz, F=F, precision=precision,
-                                direction=direction, max_abs_err=err,
-                                tol=tol)
-                    if err > tol:
-                        emit(case)
-                        raise AssertionError("cootile_spmm disagrees with "
-                                             f"its plain version: {case}")
-                    if direction == "forward":
-                        case.update(_times("cootile_spmm", s, x, run, plain,
-                                           lib_a, precision))
-                    case["s"] = time.perf_counter() - t0
-                    emit(case)
-                    results.append(case)
-                del x, g, xr, y
+                results += hold_spmm("cootile_spmm", mname, s, F, gen, lib_a)
         if mname in SWEEP_COOTILE:
             cootile_sweep(mname, mat, sm, device, gen)
         _ROW_RUNS.clear()
@@ -701,6 +761,161 @@ def run_cli(backend, data_dir, name, device, extra=()):
           "other_host_s": main_s - sum(times) - sum(prep.values()),
           "peak_mem_bytes": peak_bytes, "s": time.perf_counter() - t0})
     return launches[kernel]
+
+
+# the baselines' runs of phase 12: (label, graph, model, --sparse_backend
+# or None for the model's default, flags, the kernel its aggregations
+# launch or None); each model at its published width
+MIXHOP_CORA = ("--adj_pows", "0:24:0,1:18:7,2:18:7", "--hidden_dims_csv",
+               "60", "--learn_rate", "0.5", "--l2reg", "5e-3")
+BASELINE_RUNS = (
+    ("gcn", "syncora", "GCN", "gscatter", ("--variant", "gcn"),
+     "gscatter_spmm"),
+    ("gcn", "syncora", "GCN", "bsr", ("--variant", "gcn"), "bsr_spmm"),
+    ("gcn", "syncora", "GCN", "cootile", ("--variant", "gcn"),
+     "cootile_spmm"),
+    ("cheby", "syncora", "GCN", "gscatter",
+     ("--variant", "cheby", "--max_degree", "3"), "gscatter_spmm"),
+    ("concat2", "syncora", "GCN", "gscatter", ("--variant", "concat2"),
+     "gscatter_spmm"),
+    ("cheby_concat2", "syncora", "GCN", "gscatter",
+     ("--variant", "cheby_concat2", "--max_degree", "3"), "gscatter_spmm"),
+    ("bp", "syncora", "GCN", "gscatter",
+     ("--variant", "bp", "--feature_configs", "labels"), "gscatter_spmm"),
+    # two dense layers: no aggregation
+    ("mlp", "syncora", "GCN", "gscatter", ("--variant", "mlp"), None),
+    ("mixhop", "syncora", "MIXHOP", "gscatter", MIXHOP_CORA,
+     "gscatter_spmm"),
+    ("mixhop", "syncora", "MIXHOP", "bsr", MIXHOP_CORA, "bsr_spmm"),
+    # the sampled mean gathers a random draw: no SpMM, no logit gate
+    ("graphsage_sampled", "syncora", "GRAPHSAGE", None,
+     ("--num_samples", "5", "5"), None),
+    # the full-neighbor mean: D^-1 A through auto's CUDA route
+    ("graphsage_full", "syncora", "GRAPHSAGE", None,
+     ("--num_samples", "0", "0"), "gscatter_spmm"),
+    # a setup without graph layers
+    ("h2gcn_mlp", "syncora", "H2GCN", None,
+     ("--network_setup", "M64-R-D0.5-MO"), None),
+    ("gcn", "syn10k", "GCN", "gscatter", ("--variant", "gcn"),
+     "gscatter_spmm"),
+)
+
+
+def _segment_tensors(tensors, device):
+    """The run's tensors with every matrix the model aggregates over on the
+    ``segment`` path (index_add_), for the logit gate."""
+    import dataclasses
+
+    from h2gcn_tpu_torch.sparse import SparseMatrix
+
+    def seg(m):
+        return (None if m is None else SparseMatrix.from_scipy(
+            m.to_scipy(), backend="segment", device=device))
+
+    ref = dict(tensors)
+    hops = tensors.get("adj_hops")
+    if isinstance(hops, list):
+        ref["adj_hops"] = [seg(h) for h in hops]
+    adj = tensors["adj"]
+    if hasattr(adj, "mean_adj"):  # GraphSAGE's ELL graph
+        ref["adj"] = dataclasses.replace(adj, mean_adj=seg(adj.mean_adj),
+                                         mean_adj_gcn=seg(adj.mean_adj_gcn))
+    return ref
+
+
+def run_baseline_cli(label, data_dir, name, device, model_name, backend,
+                     flags, kernel):
+    """Phase 12: one baseline for EPOCHS epochs through the CLI; checks its
+    launches (``kernel`` launched, or no SpMM kernel at all where it is
+    None), finite losses, a checkpoint, and (where ``kernel`` is set) the
+    trained logits through the kernels against the segment path. Returns
+    the launches."""
+    import gc
+    import glob
+
+    import torch
+
+    from h2gcn_tpu_torch import run_experiments
+    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
+    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
+
+    t0 = time.perf_counter()
+    route = backend or "auto"
+    tag = f"{model_name} {label} {name} {route}"
+    ckpt_dir = os.path.join(data_dir, f"ckpt_{label}_{name}_{route}")
+    argv = [model_name, "planetoid", "--dataset", f"ind.{name}",
+            "--dataset_path", data_dir, "--epochs", str(EPOCHS), "--timing",
+            "--random_seed", "123", "--checkpoint_dir", ckpt_dir, *flags]
+    if backend:
+        argv += ["--sparse_backend", backend]
+    counters = {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
+                "cootile_spmm": cootile_spmm}
+    gc.collect()  # earlier runs' training state (reference cycles)
+    torch.cuda.empty_cache()
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    start_bytes = torch.cuda.memory_allocated(device)
+    args = run_experiments.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated(device)
+    launches = {k: c.launches for k, c in counters.items()}
+    if kernel is None and any(launches.values()):
+        raise AssertionError(f"{tag}: launched {launches}, expected none")
+    if kernel is not None and launches[kernel] == 0:
+        raise AssertionError(f"{tag}: {kernel} was never launched")
+    stats = args.objects["epoch_stats"]
+    for key in ("train_loss", "val_loss", "test_loss"):
+        if not np.isfinite(float(stats[key])):
+            raise AssertionError(f"{tag}: {key} = {float(stats[key])}")
+    if not glob.glob(os.path.join(ckpt_dir, "*", "ckpt.pt")):
+        raise AssertionError(f"{tag}: no checkpoint under {ckpt_dir}")
+    if model_name == "MIXHOP" and not os.path.exists(
+            os.path.join(ckpt_dir, "architecture.json")):
+        raise AssertionError(f"{tag}: no architecture.json")
+
+    tensors = args.objects["tensors"]
+    with torch.no_grad():
+        logits = args.objects["predict_step"](**tensors)
+        n, n_classes = tensors["y_all"].shape
+        if (tuple(logits.shape) != (n, n_classes)
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: bad logits {tuple(logits.shape)}")
+        logit_err = logit_tol = None
+        if kernel is not None:
+            ref_t = _segment_tensors(tensors, device)
+            ref = args.objects["model"](ref_t["adj"], ref_t["features"],
+                                        ref_t["adj_hops"])
+            del ref_t
+            logit_err = float((logits - ref).abs().max())
+            logit_tol = TOL * max(1.0, float(ref.abs().max()))
+            if logit_err > logit_tol:
+                raise AssertionError(f"{tag}: logits differ from the plain "
+                                     f"SpMM by {logit_err} > {logit_tol}")
+    times = args.objects["epoch_times"]
+    epoch_ms, epoch_ms_median = run_experiments.steady_epoch_ms(times)
+    prep = tensors["prep_seconds"]
+    hops = tensors.get("adj_hops")
+    emit({"baselines_cli": label, "model": model_name, "graph": name,
+          "route": route, "flags": list(flags), "n": n,
+          "support_nnz": ([h.nnz for h in hops] if isinstance(hops, list)
+                          else None),
+          "epochs": len(times), "epoch_ms": epoch_ms,
+          "epoch_ms_median": epoch_ms_median,
+          "first_epoch_ms": 1e3 * times[0],
+          "final_train_loss": float(stats["train_loss"]),
+          "final_val_acc": float(stats["val_acc"]),
+          "launches": launches,
+          "launches_per_epoch": {k: v / len(times)
+                                 for k, v in launches.items()},
+          "logit_err": logit_err, "logit_tol": logit_tol, "prep_s": prep,
+          "other_host_s": main_s - sum(times) - sum(prep.values()),
+          # the peak over the run, and what earlier phases still held
+          "peak_mem_bytes": peak_bytes, "mem_at_start_bytes": start_bytes,
+          "s": time.perf_counter() - t0})
+    return launches
 
 
 GAT_WIDTHS = ((8, 8), (1, 7))  # (heads, features a head) of GAT's layers
@@ -1517,6 +1732,16 @@ def main() -> int:
             "cootile", data_dir, "syn250k", device,
             extra=("--reorder", "cluster", "--sparse_features"))
         emit({"phase": "cootile_cli", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        for kernel, kcases in check_baseline_kernels(device).items():
+            cases[kernel] += kcases
+        emit({"phase": "baseline_kernels", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        for run in BASELINE_RUNS:
+            run_baseline_cli(run[0], data_dir, run[1], device, *run[2:])
+        emit({"phase": "baselines_cli", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

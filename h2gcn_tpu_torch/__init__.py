@@ -1,6 +1,7 @@
 """h2gcn_tpu_torch: the PyTorch/CUDA port of h2gcn_tpu.
 
-The H2GCN model family trained full-batch on an NVIDIA GPU: the same layer
+The H2GCN model family and its baselines (GCN, MixHop, GraphSAGE, GAT)
+trained full-batch on an NVIDIA GPU: the same layer
 DSL, data layer, exact-hop aggregation and training runtime as the JAX
 package ``h2gcn_tpu``, with its TPU Pallas kernels replaced by CUDA kernels
 written for Hopper (``csrc/``), each beside a plain PyTorch version that the

@@ -13,9 +13,10 @@
 //   * bool_subtract    — A \ B on sorted CSR index arrays (exact-hop
 //                        difference 1[(A+I)^k>0] − 1[(A+I)^{k-1}>0]).
 //   * rcm_order        — reverse Cuthill-McKee order (cluster reordering).
+//   * build_ell        — CSR → padded ELL neighbor table (GraphSAGE).
 //
-// The JAX package's ELL/BSR builders and the team-uncapped spgemm entry
-// points are left out: the port does not call them.
+// The JAX package's BSR builder and the team-uncapped spgemm entry points
+// are left out: the port does not call them.
 //
 // Plain C ABI for ctypes; all index arrays are int64 (scipy default) or
 // int32 as noted. This is host code, not a device kernel.
@@ -30,6 +31,24 @@
 #endif
 
 extern "C" {
+
+// CSR → padded ELL table [n, dmax] with validity flags.
+void build_ell(int64_t n_rows, const int64_t* indptr, const int32_t* indices,
+               int64_t dmax, int32_t* table, uint8_t* valid) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n_rows; ++i) {
+        const int64_t deg = indptr[i + 1] - indptr[i];
+        for (int64_t d = 0; d < dmax; ++d) {
+            if (d < deg) {
+                table[i * dmax + d] = indices[indptr[i] + d];
+                valid[i * dmax + d] = 1;
+            } else {
+                table[i * dmax + d] = 0;
+                valid[i * dmax + d] = 0;
+            }
+        }
+    }
+}
 
 // Phase 1: count nnz per row of C = A(boolean) * B(boolean).
 // indptr arrays are int64[n+1]; indices int32[nnz].

@@ -313,6 +313,18 @@ class PlanetoidData:
         feats[self.train_mask, :] = self.y_all[self.train_mask, :]
         self.features = sp.csr_matrix(feats.astype(np.float32))
 
+    def preprocess_gcn(self, add_eye=True):
+        """A+I sym-normalized and row-normalized features (GCN convention)."""
+        if self._preprocessed_adj or self._preprocessed_feature:
+            self.reload_data()
+        if add_eye:
+            self.adj_add_eye()
+        self.sparse_adj = transforms.normalize(self.sparse_adj,
+                                               NType.SYM_NORMALIZED)
+        self.row_normalize_features()
+        self._preprocessed_adj = "GCN"
+        self._preprocessed_feature = "GCN"
+
     # ---------------------------------------------------------- device export
     # densifying features beyond this element count is refused: an n x n
     # identity-feature matrix at 100K nodes would materialize 40GB
@@ -320,59 +332,91 @@ class PlanetoidData:
 
     def get_tensors(
         self,
+        get_adj_hops=None,
         get_adj_norm_hops=None,
+        supports=None,
         norm_type: NType = NType.SYM_NORMALIZED,
         backend: str = "auto",
         sparse_features: bool = False,
         reorder: str | None = None,
         device="cpu",
     ) -> Namespace:
-        """Export tensors on ``device``: the normalized hop path.
+        """Export tensors on ``device``.
 
         ``get_adj_norm_hops``: hop groups like ``["1", "2"]`` or
         ``["0,1", "2"]``; each group's exact-hop matrices are summed, then
         normalized (``norm_type``), giving one f32 SparseMatrix per group in
-        ``adj_hops``. ``sparse_features`` exports X as a ``segment``
-        SparseMatrix (the dense first layer then runs X W through ``spmm``),
-        needed past the dense guard. ``reorder`` ("rcm" | "cluster")
-        permutes every exported tensor (graph, hops, features, labels,
-        masks) by a tile-clustering node order computed on the union
-        pattern of the normalized hops, exported as ``t.node_perm`` (new
-        position ``i`` holds old node ``perm[i]``). ``t.prep_seconds`` holds
-        the host seconds of the split, the reorder and the export of the
-        matrices (their payloads' table builds). The unnormalized dense
-        stack (``get_adj_hops``), explicit ``supports`` and Chebyshev
-        supports are not ported yet (ROADMAP A3).
+        ``adj_hops``. With ``norm_type=NType.CHEBY`` the groups sum the
+        Chebyshev supports T_0..T_kmax (eigenvalue 2) instead.
+        ``get_adj_hops`` sums the groups without normalization and exports
+        them as one dense ``[n, G, n]`` tensor (refused past the dense
+        guard). ``supports``: scipy matrices exported as they are, one
+        SparseMatrix each, as ``adj_hops`` (GCN's sym_norm(A+I), the
+        Chebyshev supports, ...). ``sparse_features`` exports X as a
+        ``segment`` SparseMatrix (the dense first layer then runs X W
+        through ``spmm``), needed past the dense guard. ``reorder`` ("rcm"
+        | "cluster") permutes every exported tensor (graph, hops, features,
+        labels, masks) by a tile-clustering node order computed on the
+        union pattern of what the model aggregates over (the normalized
+        hops, else the supports, else the unnormalized hops, else the
+        adjacency), exported as ``t.node_perm`` (new position ``i`` holds
+        old node ``perm[i]``). ``t.prep_seconds`` holds the host seconds of
+        the split, the reorder and the export of the matrices (their
+        payloads' table builds).
         """
-        if norm_type == NType.CHEBY:
-            raise NotImplementedError(
-                "get_tensors: CHEBY supports are not ported (ROADMAP A3)")
         device = torch.device(device)
         prep = {}
         t0 = time.perf_counter()
 
-        normed = None
-        if get_adj_norm_hops:
-            groups = [[int(x) for x in elem.split(",")]
-                      for elem in get_adj_norm_hops]
-            kmax = max(chain(*groups))
-            splits = transforms.nhood_split(self.sparse_adj, kmax)
+        def hop_groups(spec):
+            return [[int(x) for x in elem.split(",")] for elem in spec]
+
+        def padded_split(kmax):
             # nhood_split stops when reachability saturates; the missing
             # exact-hop levels are empty matrices
+            splits = transforms.nhood_split(self.sparse_adj, kmax)
             n = self.num_samples
             while len(splits) < kmax + 1:
                 splits.append(sp.csr_matrix((n, n), dtype=splits[0].dtype))
-            summed = [sum(splits[i] for i in g) for g in groups]
-            normed = [transforms.normalize(m, norm_type) for m in summed]
+            return splits
+
+        hops_unnorm = None
+        if get_adj_hops:
+            groups = hop_groups(get_adj_hops)
+            n = self.num_samples
+            if n * n * len(groups) > self._DENSE_FEATURE_GUARD:
+                raise ValueError(
+                    f"get_adj_hops would materialize a dense "
+                    f"[{n}, {len(groups)}, {n}] stack "
+                    f"({n * n * len(groups):,} elements); use the "
+                    "normalized sparse hop pipeline (get_adj_norm_hops) "
+                    "at this scale")
+            splits = padded_split(max(chain(*groups)))
+            hops_unnorm = [sum(splits[i] for i in g) for g in groups]
+        normed = None
+        if get_adj_norm_hops:
+            groups = hop_groups(get_adj_norm_hops)
+            kmax = max(chain(*groups))
+            if norm_type == NType.CHEBY:
+                splits = transforms.chebyshev_polynomials(
+                    self.sparse_adj, kmax, eigenvalue=2)
+                normed = [sum(splits[i] for i in g) for g in groups]
+            else:
+                splits = padded_split(kmax)
+                summed = [sum(splits[i] for i in g) for g in groups]
+                normed = [transforms.normalize(m, norm_type) for m in summed]
         prep["split"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         perm = None
         if reorder:
             # the order is computed on what the model aggregates over
-            if normed:
-                pattern = sum((abs(sp.csr_matrix(p)) for p in normed[1:]),
-                              abs(sp.csr_matrix(normed[0])))
+            parts = (normed if normed is not None
+                     else list(supports) if supports is not None
+                     else hops_unnorm)
+            if parts:
+                pattern = sum((abs(sp.csr_matrix(p)) for p in parts[1:]),
+                              abs(sp.csr_matrix(parts[0])))
             else:
                 pattern = self.sparse_adj
             perm = transforms.cluster_order(pattern, method=reorder)
@@ -404,6 +448,16 @@ class PlanetoidData:
             if perm is not None:
                 feats_np = feats_np[perm]
             t.features = torch.from_numpy(feats_np).to(device)
+        if supports is not None:
+            t.adj_hops = [
+                SparseMatrix.from_scipy(permuted(m).astype(np.float32),
+                                        backend=backend, device=device)
+                for m in supports
+            ]
+        if hops_unnorm is not None:
+            stack = np.stack([np.asarray(permuted(m).todense())
+                              for m in hops_unnorm], axis=1)
+            t.adj_hops = torch.from_numpy(stack.astype(np.float32)).to(device)
         if normed is not None:
             t.adj_hops = [
                 SparseMatrix.from_scipy(permuted(m).astype(np.float32),

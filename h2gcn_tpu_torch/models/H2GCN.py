@@ -80,11 +80,9 @@ def argparse_callback(args):
 
 def preprocessing_data(args, normalized_hops=True):
     """Row-normalize features (unless disabled), drop self loops, and build
-    the exact-hop adjacency tensors on the run's device."""
-    if not normalized_hops:
-        raise NotImplementedError(
-            "network setups without graph layers export the unnormalized "
-            "hop stack, which is not ported yet (ROADMAP A3)")
+    the exact-hop adjacency tensors on the run's device: normalized sparse
+    hop matrices, or for a setup without graph layers the unnormalized
+    dense hop stack."""
     if args.precompute_workers != 1:
         raise NotImplementedError(
             "--precompute_workers > 1 is not ported yet (ROADMAP A9)")
@@ -92,8 +90,10 @@ def preprocessing_data(args, normalized_hops=True):
     if not args.no_feature_normalize:
         dataset.row_normalize_features()
     dataset.adj_remove_eye()
+    hops = (dict(get_adj_norm_hops=args.adj_nhood) if normalized_hops
+            else dict(get_adj_hops=args.adj_nhood))
     tensors = dataset.get_tensors(
-        get_adj_norm_hops=args.adj_nhood,
+        **hops,
         norm_type=NType[args.adj_norm_type], backend=args.sparse_backend,
         sparse_features=args.sparse_features,
         reorder=None if args.reorder == "none" else args.reorder,

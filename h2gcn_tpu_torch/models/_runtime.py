@@ -66,11 +66,101 @@ class KerasAdam(torch.optim.Optimizer):
                        / (torch.sqrt(st["v"]) + eps))
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """RMSprop with ``optax.rmsprop``'s rule: ``nu = (1 - decay) g^2 +
+    decay nu`` from ``nu = 0``, ``p -= lr * g / sqrt(nu + eps)`` (eps inside
+    the root). ``torch.optim.RMSprop`` decays by 0.99 and adds eps outside
+    the root."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxRMSprop.step takes no closure")
+        for group in self.param_groups:
+            lr, decay, eps = group["lr"], group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.zeros_like(p)
+                g = p.grad
+                st["nu"] = (1.0 - decay) * (g * g) + decay * st["nu"]
+                p.add_(torch.rsqrt(st["nu"] + eps) * g * -lr)
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """Adagrad with ``optax.adagrad``'s rule: the sum of squares starts at
+    ``initial`` (0.1), ``p -= lr * g / sqrt(sum + eps)`` (eps inside the
+    root). ``torch.optim.Adagrad`` starts at 0 and adds eps outside it."""
+
+    def __init__(self, params, lr: float, initial: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial=initial, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdagrad.step takes no closure")
+        for group in self.param_groups:
+            lr, eps = group["lr"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["sum"] = torch.full_like(p, group["initial"])
+                g = p.grad
+                st["sum"] = g * g + st["sum"]
+                scale = torch.where(st["sum"] > 0, torch.rsqrt(st["sum"] + eps),
+                                    torch.zeros((), device=p.device))
+                p.add_(scale * g * -lr)
+
+
+class ScheduledSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` whose step size follows ``schedule(count)``,
+    ``count`` the updates already applied (so the first step takes
+    ``schedule(0)``), as ``optax.sgd(schedule)`` does. The count lives in
+    the parameter group, so checkpoints and best-state copies keep it.
+    The step size is rounded to float32, the schedule's dtype in JAX."""
+
+    def __init__(self, params, schedule, momentum: float = 0.0,
+                 nesterov: bool = False):
+        super().__init__(params, lr=float(np.float32(schedule(0))),
+                         momentum=momentum, nesterov=nesterov)
+        self.schedule = schedule
+        for group in self.param_groups:
+            group.setdefault("count", 0)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["lr"] = float(np.float32(self.schedule(group["count"])))
+            group["count"] += 1
+        return super().step(closure)
+
+
+# the JAX package's table (optax rules, keras's eps 1e-7), with adam's keras
+# update rule
+_OPTIMIZERS = {
+    "adam": lambda params, lr: KerasAdam(params, lr),
+    "sgd": lambda params, lr: torch.optim.SGD(params, lr=lr),
+    "rmsprop": lambda params, lr: OptaxRMSprop(params, lr),
+    "adagrad": lambda params, lr: OptaxAdagrad(params, lr),
+}
+
+
 def get_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
-    if name.lower() != "adam":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP A5); use adam")
-    return KerasAdam(params, lr)
+    try:
+        make = _OPTIMIZERS[name.lower()]
+    except KeyError:
+        raise ValueError(
+            f"Unknown optimizer {name!r}; choose from {sorted(_OPTIMIZERS)}")
+    return make(params, lr)
 
 
 def _original_order_fn(node_perm):
@@ -129,10 +219,13 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     """Initialize parameters and the optimizer and register the step
     functions and callbacks in ``args.objects``.
 
-    ``early_stopping`` is an int window (sliding mean on ``es_metric``) or
-    a controller instance. Parameters are drawn from a CPU generator seeded
-    with ``seed``; dropout draws from a generator on the run's device
-    seeded with ``seed + 1``.
+    ``optimizer_name`` is a name of :func:`get_optimizer`'s table or a
+    factory ``parameters -> Optimizer``, called once the parameters exist
+    (after ``model.init``). ``early_stopping`` is an int window (sliding
+    mean on ``es_metric``) or a controller instance. Parameters are drawn
+    from a CPU generator seeded with ``seed``; dropout (and a model's
+    random draws in training) from a generator on the run's device seeded
+    with ``seed + 1``.
     """
     if (getattr(args, "_mesh_shards", 0) or 0) > 1:
         raise NotImplementedError(
@@ -144,7 +237,10 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
             "(ROADMAP A5)")
     tensors = args.objects["tensors"]
     dataset = args.objects["dataset"]
-    num_hops = len(tensors.get("adj_hops", [])) or 1
+    adj_hops = tensors.get("adj_hops", [])
+    # a list of hop matrices, or the dense [n, G, n] stack of get_adj_hops
+    num_hops = (len(adj_hops) if isinstance(adj_hops, (list, tuple))
+                else adj_hops.shape[1]) or 1
     seed = seed if seed is not None else getattr(args, "random_seed", 123) or 123
     features = tensors["features"]
     device = (features.vals if isinstance(features, SparseMatrix)
@@ -152,7 +248,10 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
 
     model.init(dataset.feature_dim, num_hops,
                torch.Generator().manual_seed(seed), device)
-    optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
+    if isinstance(optimizer_name, str):
+        optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
+    else:
+        optimizer = optimizer_name(model.parameters())
     drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     def train_step(adj, adj_hops, features, y_train, train_mask, **kwargs):
@@ -161,10 +260,13 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
         logits = model(adj, features, adj_hops, training=True,
                        generator=drop_gen)
         loss = model.loss(logits, y_train, train_mask)
-        loss.backward()
-        if args.grad_monitor:
-            monitor.grad_monitor(model)
-        optimizer.step()
+        # a model without trainable parameters (GCN's bp variant) has no
+        # gradient to take: JAX's is zero, so its update is none
+        if loss.requires_grad:
+            loss.backward()
+            if args.grad_monitor:
+                monitor.grad_monitor(model)
+            optimizer.step()
         return dict(train_loss=loss.detach())
 
     @torch.no_grad()

@@ -1,5 +1,5 @@
 """Native (C++, OpenMP) host kernels: boolean spgemm, pattern difference,
-reverse Cuthill-McKee order.
+reverse Cuthill-McKee order, the padded ELL neighbor table.
 
 The port of ``h2gcn_tpu.native``. The source is the port's own copy,
 ``h2gcn_tpu_torch/csrc/host/graphops.cpp``; at first use it is compiled by
@@ -91,7 +91,9 @@ def _load():
              [i64, i64, p64, p32, p64, p32, p64, p32, i64]),
             ("bool_subtract_count", [i64, p64, p32, p64, p32, p64]),
             ("bool_subtract_fill", [i64, p64, p32, p64, p32, p64, p32]),
-            ("rcm_order", [i64, p64, p32, p32])):
+            ("rcm_order", [i64, p64, p32, p32]),
+            ("build_ell", [i64, p64, p32, i64, p32,
+                           ctypes.POINTER(ctypes.c_uint8)])):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = None
@@ -117,6 +119,10 @@ def _p64(a):
 
 def _p32(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _pu8(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
 def _as_csr_idx(m: sp.csr_matrix):
@@ -217,3 +223,26 @@ def rcm_order(adj: sp.spmatrix) -> np.ndarray:
     perm = np.empty(n, dtype=np.int32)
     lib.rcm_order(n, _p64(ip), _p32(ix), _p32(perm))
     return perm
+
+
+def build_ell(adj: sp.spmatrix):
+    """Padded ELL neighbor table ``int32[n, dmax]`` (row ``i`` holds node
+    ``i``'s neighbors in CSR order, then zeros) and its validity mask
+    ``bool[n, dmax]``; ``dmax`` is at least 1. Without the library, the
+    same table from a Python loop over the rows."""
+    csr = adj.tocsr()
+    n = csr.shape[0]
+    degs = np.diff(csr.indptr)
+    dmax = max(1, int(degs.max()))
+    lib = _load()
+    table = np.zeros((n, dmax), dtype=np.int32)
+    valid = np.zeros((n, dmax), dtype=np.uint8)
+    if lib is None:
+        for i in range(n):
+            nbrs = csr.indices[csr.indptr[i]:csr.indptr[i + 1]]
+            table[i, : len(nbrs)] = nbrs
+            valid[i, : len(nbrs)] = 1
+    else:
+        ip, ix = _as_csr_idx(csr)
+        lib.build_ell(n, _p64(ip), _p32(ix), dmax, _p32(table), _pu8(valid))
+    return table, valid.astype(bool)

@@ -102,11 +102,15 @@ def main(argv=None):
     nnz_per_epoch = 0
     if timing:
         hops = args.objects["tensors"].get("adj_hops")
-        nnz_per_epoch = sum(getattr(h, "nnz", 0) for h in hops or [])
-        if not hops:
-            # models without hop matrices (GAT) aggregate over the support
-            nnz_per_epoch = getattr(args.objects["tensors"].get("adj"),
-                                    "nnz", 0)
+        if hops is None:
+            hops = []
+        if isinstance(hops, (list, tuple)):  # a dense hop stack has no nnz
+            nnz_per_epoch = sum(getattr(h, "nnz", 0) for h in hops)
+            if not hops:
+                # models without hop matrices (GAT, GraphSAGE's ELL graph)
+                # aggregate over the support
+                nnz_per_epoch = getattr(args.objects["tensors"].get("adj"),
+                                        "nnz", 0)
         args.objects["epoch_times"] = []
     profile_dir = getattr(args, "_profile_dir", None)
     profiler = None

@@ -3,8 +3,9 @@
 
 Symmetric / random-walk normalization with the inf->0 degree guard, diagonal
 add/remove, row normalization of features, the exact-k-hop split used by
-H2GCN (A_k = 1[(A+I)^k > 0] - 1[(A+I)^(k-1) > 0]), and the tile-clustering
-node order (``cluster_order``, ``permute_graph``). Everything here runs once
+H2GCN (A_k = 1[(A+I)^k > 0] - 1[(A+I)^(k-1) > 0]), the Chebyshev polynomial
+supports of GCN-Cheby, and the tile-clustering node order
+(``cluster_order``, ``permute_graph``). Everything here runs once
 per dataset on the host; results become
 :class:`~h2gcn_tpu_torch.sparse.matrix.SparseMatrix` objects on the device.
 """
@@ -141,3 +142,40 @@ def row_normalize(features: sp.spmatrix):
         inv = np.power(rowsum, -1.0)
     inv[np.isinf(inv)] = 0.0
     return sp.diags(inv) @ features
+
+
+def chebyshev_polynomials(adj: sp.spmatrix, k: int,
+                          eigenvalue=None) -> List[sp.spmatrix]:
+    """Chebyshev polynomial supports T_0..T_k of the scaled Laplacian
+    ``2 L / lambda_max - I``, ``L = I - D^{-1/2} A D^{-1/2}``.
+
+    ``eigenvalue=None`` computes the largest Laplacian eigenvalue with
+    ARPACK; where ARPACK does not converge (disconnected or near-bipartite
+    graphs) it warns and takes 2, the bound of a normalized Laplacian's
+    spectrum. Pass ``2`` for the fixed-eigenvalue variant. The T_k are
+    scipy CSR in the JAX package's order of operations, so their patterns
+    (explicit zeros included) and values are the same.
+    """
+    n = adj.shape[0]
+    adj_normalized = normalize(sp.csr_matrix(adj), NType.SYM_NORMALIZED)
+    laplacian = sp.eye(n) - adj_normalized
+    if eigenvalue is None:
+        from scipy.sparse.linalg import ArpackNoConvergence, eigsh
+
+        try:
+            largest, _ = eigsh(laplacian, 1, which="LM")
+            largest = largest[0]
+        except ArpackNoConvergence:
+            import warnings
+
+            warnings.warn("ARPACK did not converge on the Laplacian; "
+                          "falling back to eigenvalue=2")
+            largest = 2.0
+    else:
+        largest = eigenvalue
+    scaled_lap = (2.0 / largest) * laplacian - sp.eye(n)
+
+    t_k = [sp.eye(n).tocsr(), sp.csr_matrix(scaled_lap)]
+    for _ in range(2, k + 1):
+        t_k.append(2 * scaled_lap @ t_k[-1] - t_k[-2])
+    return t_k

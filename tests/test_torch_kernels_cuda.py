@@ -932,3 +932,78 @@ def test_cootile_schedules_match_plain(cuda, e_b, piece, range_slots):
                                range_slots=range_slots)
         torch.cuda.synchronize()
         _close(got, tct.cootile_spmm_plain(ct, x, precision=precision))
+
+
+def _baseline_matrices():
+    """The baselines' supports on a 3,000-node graph: GCN's self-looped
+    sym_norm(A+I) (explicit diagonal), Chebyshev T_3 at eigenvalue 2
+    (negative values, much denser than A) with every 7th stored value
+    an explicit zero, and GraphSAGE's and bp's row-normalized D^-1 A (not
+    symmetric)."""
+    from h2gcn_tpu_torch.sparse import transforms as tt
+
+    a = _rand(3000, 3000, 9000, 21)
+    a = ((a + a.T) > 0).astype(np.float32).tocsr()
+    a.setdiag(0)
+    a.eliminate_zeros()
+    cheb = sp.csr_matrix(tt.chebyshev_polynomials(a, 3, eigenvalue=2)[3],
+                         dtype=np.float32)
+    cheb.data[::7] = 0.0  # stored, not eliminated
+    return {"self_looped": tt.normalize(tt.add_eye(a)).tocsr(),
+            "cheby_zeros": cheb,
+            "rw": tt.normalize(a, tt.NType.RW_NORMALIZED).tocsr()}
+
+
+def _plain(backend, sm, x):
+    if backend == "gscatter":
+        return tgs.gscatter_spmm_plain(sm.gsc, x)
+    if backend == "bsr":
+        return tbsr.bsr_spmm_plain(sm.bsr, x, n_out=sm.shape[0])
+    return tct.cootile_spmm_plain(sm.coot, x)
+
+
+_COUNTERS = {"gscatter": tgs.gscatter_spmm, "bsr": tbsr.bsr_spmm,
+             "cootile": tct.cootile_spmm}
+
+
+@pytest.mark.parametrize("matrix", ["self_looped", "cheby_zeros"])
+@pytest.mark.parametrize("f", [7, 16, 1433])
+@pytest.mark.parametrize("backend", ["gscatter", "bsr", "cootile"])
+def test_spmm_kernels_at_the_baselines_widths(cuda, backend, f, matrix):
+    """The widths the baselines aggregate at (bp's and GCN's 7 classes,
+    GCN's 16 hidden units, cheby's 1,433 raw features; F = 7 takes BSR's
+    scalar loads) on their supports, forward and backward."""
+    mat = _baseline_matrices()[matrix]
+    if matrix == "cheby_zeros":
+        assert (mat.data < 0).any() and (mat.data == 0).any()
+    sm = SparseMatrix.from_scipy(mat, backend=backend, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn(3000, f, generator=gen, device=cuda, requires_grad=True)
+    g = torch.randn(3000, f, generator=gen, device=cuda)
+    before = _COUNTERS[backend].launches
+    y = spmm(sm, x)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert _COUNTERS[backend].launches >= before + 2
+    _close(y.detach(), _plain(backend, sm, x.detach()))
+    _close(x.grad, _plain(backend, sm.transpose_view(), g))
+
+
+@pytest.mark.parametrize("backend", ["gscatter", "bsr", "cootile"])
+def test_row_normalized_backward_matches_the_plain_path(cuda, backend):
+    """GraphSAGE's D^-1 A is not symmetric: its backward reads the
+    transpose payload, held against the segment path's index_add_."""
+    mat = _baseline_matrices()["rw"]
+    sm = SparseMatrix.from_scipy(mat, backend=backend, device=cuda)
+    assert not sm.symmetric
+    ref = SparseMatrix.from_scipy(mat, backend="segment", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(3000, 128, generator=gen, device=cuda, requires_grad=True)
+    xr = x.detach().clone().requires_grad_(True)
+    g = torch.randn(3000, 128, generator=gen, device=cuda)
+    before = _COUNTERS[backend].launches
+    spmm(sm, x).backward(g)
+    spmm(ref, xr).backward(g)
+    torch.cuda.synchronize()
+    assert _COUNTERS[backend].launches >= before + 2
+    _close(x.grad, xr.grad)

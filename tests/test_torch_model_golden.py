@@ -1,10 +1,12 @@
-"""The PyTorch port's H2GCN-2 against the executed TF2 reference goldens
-(tests/golden, read-only), with the reference weights carried through the
-JAX package's parameter list and load_jax_params.
+"""The PyTorch port's H2GCN models against the executed TF2 reference
+goldens (tests/golden, read-only), with the reference weights carried
+through the JAX package's parameter list and load_jax_params.
 
 Forward activations and logits at 1e-5, loss terms and accuracy as in
 tests/test_golden_reference.py, and 10 dropout-free keras-Adam steps whose
-losses match the reference at rtol 2e-5."""
+losses match the reference at rtol 2e-5: H2GCN-2 on Cora, and as
+parametrised cases H2GCN-1 on Cora, H2GCN-2 on Citeseer and with the hop
+groups ``0,1;2`` (forward and loss), and H2GCN-1's dynamics."""
 
 import os
 
@@ -84,8 +86,7 @@ def _t(npz, key):
     return torch.from_numpy(np.asarray(npz[key], dtype=np.float32))
 
 
-def test_forward_matches_reference_tf2():
-    npz = _load("ref_h2gcn2_cora.npz")
+def _check_forward(npz):
     model, x, hops = _port_model(npz)
     capture = {}
     with torch.no_grad():
@@ -99,8 +100,11 @@ def test_forward_matches_reference_tf2():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_loss_and_accuracy_match_reference_tf2():
-    npz = _load("ref_h2gcn2_cora.npz")
+def test_forward_matches_reference_tf2():
+    _check_forward(_load("ref_h2gcn2_cora.npz"))
+
+
+def _check_loss_and_accuracy(npz):
     model, x, hops = _port_model(npz)
     with torch.no_grad():
         logits = model(hops[0], x, hops)
@@ -116,8 +120,11 @@ def test_loss_and_accuracy_match_reference_tf2():
                                    rtol=0, atol=1e-6)
 
 
-def test_training_dynamics_match_reference_tf2():
-    npz = _load("ref_dyn_h2gcn2_cora.npz")
+def test_loss_and_accuracy_match_reference_tf2():
+    _check_loss_and_accuracy(_load("ref_h2gcn2_cora.npz"))
+
+
+def _check_training_dynamics(npz):
     assert str(npz["meta/optimizer"]) == "adam"
     model, x, hops = _port_model(npz)
     y_train = _t(npz, "tensors/y_train")
@@ -139,3 +146,26 @@ def test_training_dynamics_match_reference_tf2():
                 model.kernels[str(ind)].detach().numpy(), npz[wkey],
                 rtol=1e-4, atol=1e-6,
                 err_msg=f"post-training kernel {name} diverges")
+
+
+def test_training_dynamics_match_reference_tf2():
+    _check_training_dynamics(_load("ref_dyn_h2gcn2_cora.npz"))
+
+
+MORE_GOLDENS = ["ref_h2gcn1_cora.npz", "ref_h2gcn2_citeseer.npz",
+                "ref_h2gcn2_cora_hopgroups.npz"]
+
+
+@pytest.mark.parametrize("name", MORE_GOLDENS)
+def test_forward_matches_more_references_tf2(name):
+    _check_forward(_load(name))
+
+
+@pytest.mark.parametrize("name", MORE_GOLDENS)
+def test_loss_and_accuracy_match_more_references_tf2(name):
+    _check_loss_and_accuracy(_load(name))
+
+
+@pytest.mark.parametrize("name", ["ref_dyn_h2gcn1_cora.npz"])
+def test_training_dynamics_match_more_references_tf2(name):
+    _check_training_dynamics(_load(name))
