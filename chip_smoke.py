@@ -121,7 +121,25 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    logits against the segment path; sampled GraphSAGE (a random draw),
    GCN's ``mlp`` and H2GCN's setup without graph layers launch no SpMM
    kernel, and are checked to launch none;
-13. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+13. (``paths``) drives the runtime's entry points beyond a plain training
+   run on the card: H2GCN-2 on the 10K graph per-epoch and with
+   ``--epochs_per_block 5`` through gscatter and cootile (every epoch's
+   stats, the best epoch and its parameters and Adam counts agree; one
+   more block under ``torch.cuda.set_sync_debug_mode("warn")`` syncs only
+   at its readback; per-epoch and blocked ms an epoch); a recorded run
+   (``--use_signac --save_activations --deg_acc_monitor``, cluster-ordered)
+   whose ``results.json`` and every stored array are checked in the
+   original node order, then ``python -m h2gcn_tpu_torch.predict`` from
+   its checkpoint (logits within the gate of the trained model's); a
+   network setup with every new DSL kind (``DSL_SETUP``, its X layer
+   registered here) for 5 epochs, its logits against the segment path
+   and ``embed_step`` against the E layer's output; ``attn_step`` of GAT
+   on the 10K graph through the gather payload (rows sum to 1, the
+   coefficients against the segment path's); and H2GCN-2 for 5 epochs on
+   a synthetic GeomGCN dataset at squirrel's published size and on the
+   10K graph as a SparseGraph npz, both written here from a seed (logits
+   against the segment path, epoch time, ``prep_s``, peak memory);
+14. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 
@@ -1524,6 +1542,504 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
     return {k: launches[k] for k in _GAT_ROUTES[route]}
 
 
+# --------------------------------------------------------------------------
+# Phase 13 (paths): the runtime's entry points beyond a training run
+# --------------------------------------------------------------------------
+
+# the per-epoch stats the blocked and per-epoch runs are held to
+_PATH_STATS = ("train_loss", "train_acc", "val_acc", "test_accuracy",
+               "val_loss", "test_loss")
+# H2GCN-2's full width with every new DSL kind; "scale" is the X layer
+# the phase registers
+DSL_SETUP = ("M64-E-R-T1-G-V-T2-G-V-C1-C2-[lambda x: jnp.tanh(x)]-SG-"
+             "S_0_128-I-Xscale_2-D0.5-MO")
+# squirrel's size in the Geom-GCN paper's dataset table
+SQUIRREL = dict(n=5201, edges=198_493, n_feat=2089, n_classes=5)
+
+
+class RecordedEpochs:
+    """Records every epoch line the CLI prints (the per-epoch and blocked
+    loops both print through ``EpochStatsPrinter``) as floats."""
+
+    def __enter__(self):
+        from h2gcn_tpu_torch.modules import logger
+
+        self.epochs = []
+        self._cls = logger.EpochStatsPrinter
+        self._orig = self._cls.__call__
+        orig, epochs = self._orig, self.epochs
+
+        def record(printer, epoch, stats):
+            epochs.append((epoch, {k: float(stats[k]) for k in _PATH_STATS}))
+            orig(printer, epoch, stats)
+
+        self._cls.__call__ = record
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__call__ = self._orig
+
+
+def _spmm_counters():
+    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
+    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
+
+    return {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
+            "cootile_spmm": cootile_spmm}
+
+
+def _cli(argv, device, counters=None):
+    """One run of ``run_experiments.main(argv)``: (args, launches, peak
+    device bytes above the start, seconds)."""
+    import gc
+
+    import torch
+
+    from h2gcn_tpu_torch import run_experiments
+
+    counters = _spmm_counters() if counters is None else counters
+    gc.collect()  # earlier runs' training state (reference cycles)
+    torch.cuda.empty_cache()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    args = run_experiments.main(argv)
+    torch.cuda.synchronize()
+    return (args, {k: fn.launches for k, fn in counters.items()},
+            torch.cuda.max_memory_allocated(device) - start,
+            time.perf_counter() - t0)
+
+
+def _gate(tag, what, got, ref):
+    """max |got - ref| <= TOL * max(1, max |ref|); returns (err, tol)."""
+    err = float((got - ref).abs().max())
+    tol = TOL * max(1.0, float(ref.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {what} differ by {err} > {tol}")
+    return err, tol
+
+
+def _finite(tag, stats):
+    for key in ("train_loss", "val_loss", "test_loss"):
+        if not np.isfinite(float(stats[key])):
+            raise AssertionError(f"{tag}: {key} = {float(stats[key])}")
+
+
+def _segment_logits(args, device):
+    """The trained model's logits with every hop matrix on the segment
+    path (index_add_), beside its logits through the run's kernels."""
+    import torch
+
+    tensors = args.objects["tensors"]
+    with torch.no_grad():
+        logits = args.objects["predict_step"](**tensors)
+        ref_t = _segment_tensors(tensors, device)
+        ref = args.objects["model"](ref_t["adj"], ref_t["features"],
+                                    ref_t["adj_hops"])
+    return logits, ref
+
+
+def paths_blocked(data_dir, name, backend, device):
+    """Step 1: H2GCN-2 per-epoch and with ``--epochs_per_block 5`` through
+    ``backend``; per-epoch stats, the best epoch and the best parameters
+    agree; then one more block of the blocked run under
+    ``torch.cuda.set_sync_debug_mode("warn")`` counts its host syncs: only
+    its one readback. Returns the blocked run's args and launches."""
+    from h2gcn_tpu_torch.run_experiments import steady_epoch_ms
+
+    import torch
+
+    tag = f"paths blocked {name} {backend}"
+    base = ["H2GCN", "planetoid", "--dataset", f"ind.{name}",
+            "--dataset_path", data_dir, "--sparse_backend", backend,
+            "--epochs", "10", "--best_val_criteria", "val_loss",
+            "--dropout", "0", "--timing", "--random_seed", "123"]
+    runs = {}
+    for mode, extra in (("per_epoch", []), ("blocked",
+                                            ["--epochs_per_block", "5"])):
+        with RecordedEpochs() as rec:
+            args, launches, peak, secs = _cli(
+                base + extra + ["--checkpoint_dir", os.path.join(
+                    data_dir, f"ckpt_paths_{backend}_{mode}")], device)
+        if launches[f"{backend}_spmm"] == 0:
+            raise AssertionError(f"{tag} {mode}: {backend}_spmm never "
+                                 "launched")
+        runs[mode] = (args, launches, rec.epochs, secs)
+    (pa, la, ea, _), (ba, lb, eb, _) = runs["per_epoch"], runs["blocked"]
+    if [e for e, _ in ea] != [e for e, _ in eb] or len(ea) != 10:
+        raise AssertionError(f"{tag}: epochs {[e for e, _ in ea]} != "
+                             f"{[e for e, _ in eb]}")
+    stat_err = 0.0
+    for (epoch, sa), (_, sb) in zip(ea, eb):
+        _finite(f"{tag} epoch {epoch}", sb)
+        for key in _PATH_STATS:
+            err = abs(sa[key] - sb[key])
+            if err > TOL * max(1.0, abs(sa[key])):
+                raise AssertionError(f"{tag}: epoch {epoch} {key} "
+                                     f"{sb[key]} != {sa[key]}")
+            stat_err = max(stat_err, err)
+    best_a = pa.objects["best_val_stats"]["epoch"]
+    best_b = ba.objects["best_val_stats"]["epoch"]
+    if best_a != best_b:
+        raise AssertionError(f"{tag}: best epoch {best_b} != {best_a}")
+    param_err = 0.0
+    pa_best = pa.objects["best_state"]["params"]
+    pb_best = ba.objects["best_state"]["params"]
+    for key, ref in pa_best.items():
+        param_err = max(param_err, _gate(tag, f"best {key}", pb_best[key],
+                                         ref)[0])
+    counts = [st["count"] for st in
+              ba.objects["best_state"]["opt_state"]["state"].values()]
+    if counts != [best_a] * len(counts):
+        raise AssertionError(f"{tag}: the best state's Adam counts "
+                             f"{counts} != {best_a}")
+
+    # one more block: its only host sync is the readback of its stats
+    tensors = ba.objects["tensors"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ba.objects["train_block"](5, 11, **tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if str(w.message).startswith("called a synchronizing")]
+    if len(syncs) != 1:
+        raise AssertionError(f"{tag}: a steady block synchronized at "
+                             f"{syncs}, not only at its one readback")
+    per_ms = steady_epoch_ms(pa.objects["epoch_times"])
+    k0 = ba.objects["block_times"][0][0]
+    blocked_ms = steady_epoch_ms(
+        [t / k for k, t in ba.objects["block_times"] if k == k0])
+    emit({"paths": "blocked", "graph": name, "route": backend,
+          "epochs": 10, "block": 5, "best_epoch": best_b,
+          "max_stat_err": stat_err, "max_param_err": param_err,
+          "steady_block_syncs": syncs,
+          "per_epoch_ms": per_ms[0], "per_epoch_ms_median": per_ms[1],
+          "blocked_ms": blocked_ms[0], "blocked_ms_median": blocked_ms[1],
+          "launches_per_epoch_run": la, "launches_blocked_run": lb})
+    return ba, lb
+
+
+def paths_store_and_predict(data_dir, name, device, root):
+    """Step 2: a recorded run (``--use_signac``, cluster-ordered so the
+    original order is not the training order) with saved activations,
+    predictions and degree-accuracy records; every stored array against
+    the restored model in the original node order; then
+    ``python -m h2gcn_tpu_torch.predict`` from the run's checkpoint."""
+    import glob
+    import json as _json
+
+    import torch
+
+    from h2gcn_tpu_torch.modules.runstore import get_project
+
+    tag = f"paths store {name}"
+    argv = ["H2GCN", "planetoid", "--dataset", f"ind.{name}",
+            "--dataset_path", data_dir, "--sparse_backend", "gscatter",
+            "--epochs", "10", "--best_val_criteria", "val_loss",
+            "--dropout", "0", "--random_seed", "123", "--reorder",
+            "cluster", "--use_signac", "--signac_root", root,
+            "--save_activations", "--deg_acc_monitor", "2", "5",
+            "--run_id", "paths"]
+    args, launches, peak, secs = _cli(argv, device)
+    job = args.objects["signac_job"]
+    if [j.id for j in get_project(root).find_jobs({"run_id": "paths"})] \
+            != [job.id]:
+        raise AssertionError(f"{tag}: the project does not find its job")
+    with open(job.fn("results.json")) as f:
+        results = _json.load(f)
+    best = args.objects["best_val_stats"]
+    for key in _PATH_STATS[1:] + ("epoch",):
+        if abs(results[key] - float(best[key])) > 1e-6:
+            raise AssertionError(f"{tag}: results.json {key}")
+    tensors = args.objects["tensors"]
+    unperm = args.objects["original_order"]
+    capture = {}
+    with torch.no_grad():
+        logits = args.objects["predict_step"](**tensors)
+        args.objects["model"](tensors["adj"], tensors["features"],
+                              tensors["adj_hops"], capture=capture)
+    keys = set(job.data.keys())
+    want = set(capture) | {"predicted_prob", "train_mask", "val_mask",
+                           "test_mask"} | {
+        f"deg_acc/{s}/{k}" for s in ("train", "val", "test")
+        for k in ("bins", "counts", "acc")}
+    if keys != want:
+        raise AssertionError(f"{tag}: stored keys {sorted(keys ^ want)} "
+                             "differ")
+    for key, value in list(capture.items()) + [("predicted_prob", logits)]:
+        _gate(tag, key, torch.from_numpy(job.data[key]),
+              unperm(value).cpu())
+    dataset = args.objects["dataset"]
+    for scope in ("train", "val", "test"):
+        if not np.array_equal(job.data[f"{scope}_mask"],
+                              np.asarray(getattr(dataset, f"{scope}_mask"),
+                                         np.float32)):
+            raise AssertionError(f"{tag}: {scope}_mask not in the original "
+                                 "node order")
+    # the inference entry point from the recorded run's checkpoint
+    ckpts = glob.glob(os.path.join(job.workspace(), "checkpoints", "*",
+                                   "ckpt.pt"))
+    if len(ckpts) != 1:
+        raise AssertionError(f"{tag}: checkpoints {ckpts} in the job")
+    ckpt = ckpts[0]
+    out = os.path.join(root, "preds.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "h2gcn_tpu_torch.predict", "H2GCN",
+         "planetoid", "--dataset", f"ind.{name}", "--dataset_path",
+         data_dir, "--sparse_backend", "gscatter", "--reorder", "cluster",
+         "--restore_checkpoint", ckpt, "--output", out,
+         "--checkpoint_dir", os.path.join(root, "ckpt_predict")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    predict_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"{tag}: predict exited {proc.returncode}")
+    preds = np.load(out)
+    err, tol = _gate(tag, "predict's logits",
+                     torch.from_numpy(preds["logits"]), logits.cpu())
+    if not np.array_equal(preds["predicted_label"],
+                          logits.argmax(1).cpu().numpy()):
+        raise AssertionError(f"{tag}: predicted labels differ")
+    emit({"paths": "store_predict", "graph": name, "job": job.id,
+          "stored_keys": len(keys), "predict_logit_err": err,
+          "predict_logit_tol": tol, "predict_s": predict_s,
+          "launches": launches, "train_s": secs})
+
+
+def _scale_factory(conf, output_dim):
+    factor = float(conf)
+
+    def fn(params, adj, x, adjhops, tagged):
+        return x * factor
+
+    return fn
+
+
+def paths_dsl(data_dir, name, device):
+    """Step 3: a network setup with every new DSL kind (an E-marked dense,
+    a lambda, SG, a slice, I and a registered X layer) trained 5 epochs
+    through gscatter; its logits against the segment path; embed_step
+    against the E layer's output."""
+    from h2gcn_tpu_torch.run_experiments import steady_epoch_ms
+
+    import torch
+
+    from h2gcn_tpu_torch.nn.model import experimental_registry
+
+    tag = f"paths dsl {name}"
+    experimental_registry["scale"] = _scale_factory
+    try:
+        args, launches, peak, secs = _cli(
+            ["H2GCN", "planetoid", "--dataset", f"ind.{name}",
+             "--dataset_path", data_dir, "--sparse_backend", "gscatter",
+             "--network_setup", DSL_SETUP, "--epochs", str(EPOCHS),
+             "--timing", "--random_seed", "123", "--checkpoint_dir",
+             os.path.join(data_dir, "ckpt_paths_dsl")], device)
+        if launches["gscatter_spmm"] == 0:
+            raise AssertionError(f"{tag}: gscatter_spmm never launched")
+        _finite(tag, args.objects["epoch_stats"])
+        logits, ref = _segment_logits(args, device)
+        logit_err, logit_tol = _gate(tag, "logits", logits, ref)
+        tensors = args.objects["tensors"]
+        model = args.objects["model"]
+        with torch.no_grad():
+            emb = args.objects["embed_step"](**tensors)
+            want = torch.matmul(tensors["features"], model.kernels["0"])
+        emb_err, _ = _gate(tag, "embeddings", emb, want)
+        names = model.names
+    finally:
+        del experimental_registry["scale"]
+    ms = steady_epoch_ms(args.objects["epoch_times"])
+    emit({"paths": "dsl", "graph": name, "setup": DSL_SETUP,
+          "layers": names, "logit_err": logit_err, "logit_tol": logit_tol,
+          "embed_err": emb_err, "epoch_ms": ms[0], "epoch_ms_median": ms[1],
+          "launches": launches, "peak_mem_bytes": peak, "s": secs})
+
+
+def paths_attn(data_dir, name, device):
+    """Step 4: GAT on the 10K graph through the gather payload (``auto``
+    past the BSR budget); attn_step's coefficients through the payload
+    (its call launches the weighted combine) sum to 1 over each row's
+    edges and agree with the segment path's."""
+    import torch
+
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+
+    tag = f"paths attn {name}"
+    counters = {"gscatter_weighted": gat.gscatter_weighted}
+    args, launches, peak, secs = _cli(
+        ["GAT", "planetoid", "--dataset", f"ind.{name}", "--dataset_path",
+         data_dir, "--fused_attention", "--epochs", "2", "--random_seed",
+         "123", "--checkpoint_dir", os.path.join(data_dir,
+                                                 "ckpt_paths_attn")],
+        device, counters)
+    tensors = args.objects["tensors"]
+    adj, model = tensors["adj"], args.objects["model"]
+    ga = adj.attn
+    if not isinstance(ga, gat.GatherAttn):
+        raise AssertionError(f"{tag}: the support took no gather payload")
+    gat.gscatter_weighted.launches = 0
+    coefs = args.objects["attn_step"](**tensors)
+    torch.cuda.synchronize()
+    attn_launches = gat.gscatter_weighted.launches
+    if attn_launches == 0:
+        raise AssertionError(f"{tag}: attn_step launched no combine")
+    model.fused_attention = False
+    try:
+        ref = args.objects["attn_step"](**tensors)
+    finally:
+        model.fused_attention = True
+    nnz = adj.nnz
+    if not (torch.equal(adj.rows[:nnz].long(), ga.rows.long())
+            and torch.equal(adj.cols[:nnz].long(), ga.cols.long())):
+        raise AssertionError(f"{tag}: the payload's edges are not in the "
+                             "support's order")
+    sum_err = alpha_err = 0.0
+    for layer, (a, r) in enumerate(zip(coefs, ref)):
+        sums = torch.zeros(adj.shape[0], a.shape[0], device=a.device)
+        sums.index_add_(0, ga.rows.long(), a.T)
+        sum_err = max(sum_err, float((sums - 1).abs().max()))
+        alpha_err = max(alpha_err, _gate(tag, f"layer {layer} alpha", a,
+                                         r[:, :nnz])[0])
+    if sum_err > TOL:
+        raise AssertionError(f"{tag}: alpha rows sum to 1 +- {sum_err}")
+    emit({"paths": "attn", "graph": name, "route": "gather",
+          "edges": nnz, "heads": [int(a.shape[0]) for a in coefs],
+          "row_sum_err": sum_err, "alpha_err": alpha_err,
+          "attn_step_launches": {"gscatter_weighted": attn_launches},
+          "train_launches": launches, "s": secs})
+
+
+def write_geomgcn(path, seed=0, n=SQUIRREL["n"], edges=SQUIRREL["edges"],
+                  n_feat=SQUIRREL["n_feat"], n_classes=SQUIRREL["n_classes"],
+                  feats_per_row=40):
+    """A synthetic GeomGCN dataset at squirrel's size: ``edges`` distinct
+    undirected edges drawn as build_graph draws them (every node in at
+    least one), ``feats_per_row`` set bits of ``n_feat`` binary features a
+    node, random classes, and a 60/20/20 split file. Returns the split
+    file's path."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(n) + 1.0) ** -0.6
+    w /= w.sum()
+    # a chain puts every node in the edge file (a missing node is dropped)
+    pairs = {(i, i + 1) for i in range(n - 1)}
+    while len(pairs) < edges:
+        u, v = rng.choice(n, size=(2, edges), p=w)
+        for a, b in zip(np.minimum(u, v), np.maximum(u, v)):
+            if a != b:
+                pairs.add((int(a), int(b)))
+                if len(pairs) == edges:
+                    break
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "out1_graph_edges.txt"), "w") as f:
+        f.write("node_id\tnode_id\n")
+        f.write("".join(f"{a}\t{b}\n" for a, b in sorted(pairs)))
+    feats = np.zeros((n, n_feat), np.uint8)
+    feats[np.repeat(np.arange(n), feats_per_row),
+          rng.integers(0, n_feat, n * feats_per_row)] = 1
+    labels = rng.integers(0, n_classes, n)
+    digits = np.where(feats, "1", "0")
+    with open(os.path.join(path, "out1_node_feature_label.txt"), "w") as f:
+        f.write("node_id\tfeature\tlabel\n")
+        f.write("".join(f"{i}\t{','.join(digits[i])}\t{labels[i]}\n"
+                        for i in range(n)))
+    order = rng.permutation(n)
+    masks = {}
+    for key, (lo, hi) in (("train_mask", (0, 0.6)), ("val_mask", (0.6, 0.8)),
+                          ("test_mask", (0.8, 1.0))):
+        m = np.zeros(n, np.int64)
+        m[order[int(lo * n):int(hi * n)]] = 1
+        masks[key] = m
+    split = os.path.join(path, "squirrel_split_0.6_0.2_0.npz")
+    np.savez(split, **masks)
+    return split
+
+
+def write_sparsegraph(path, name, adj, seed=0, n_feat=1433, feats_per_row=18,
+                      n_classes=7):
+    """``adj`` as a SparseGraph npz with sparse binary features and random
+    classes."""
+    import scipy.sparse as sp
+
+    from h2gcn_tpu_torch.datasets import sparsegraph
+
+    rng = np.random.default_rng(seed)
+    n = adj.shape[0]
+    cols = rng.integers(0, n_feat, (n, feats_per_row))
+    feats = sp.csr_matrix(
+        (np.ones(cols.size, np.float32),
+         (np.repeat(np.arange(n), feats_per_row), cols.ravel())),
+        shape=(n, n_feat))
+    feats.data[:] = 1.0
+    sparsegraph.save_sparse_graph_to_npz(
+        os.path.join(path, name),
+        sparsegraph.SparseGraph(adj, feats, rng.integers(0, n_classes, n)))
+
+
+def paths_loader(fmt, dataset, data_path, extra, device):
+    """Step 5: H2GCN-2 5 epochs through gscatter on a ``fmt`` dataset;
+    finite losses, logits against the segment path, epoch time, host
+    set-up seconds and peak device memory."""
+    from h2gcn_tpu_torch.run_experiments import steady_epoch_ms
+
+    tag = f"paths loader {fmt} {dataset}"
+    t0 = time.perf_counter()
+    args, launches, peak, secs = _cli(
+        ["H2GCN", fmt, "--dataset", dataset, "--dataset_path", data_path,
+         "--sparse_backend", "gscatter", "--epochs", str(EPOCHS), "--timing",
+         "--random_seed", "123", "--checkpoint_dir",
+         os.path.join(data_path, f"ckpt_paths_{fmt}"), *extra], device)
+    if launches["gscatter_spmm"] == 0:
+        raise AssertionError(f"{tag}: gscatter_spmm never launched")
+    _finite(tag, args.objects["epoch_stats"])
+    logits, ref = _segment_logits(args, device)
+    logit_err, logit_tol = _gate(tag, "logits", logits, ref)
+    tensors = args.objects["tensors"]
+    ms = steady_epoch_ms(args.objects["epoch_times"])
+    emit({"paths": "loader", "format": fmt, "dataset": dataset,
+          "n": int(tensors["y_all"].shape[0]),
+          "features": int(args.objects["dataset"].feature_dim),
+          "hop_nnz": [h.nnz for h in tensors["adj_hops"]],
+          "train_nodes": int(tensors["train_mask"].sum()),
+          "logit_err": logit_err, "logit_tol": logit_tol,
+          "epoch_ms": ms[0], "epoch_ms_median": ms[1],
+          "first_epoch_ms": 1e3 * args.objects["epoch_times"][0],
+          "prep_s": tensors["prep_seconds"], "peak_mem_bytes": peak,
+          "launches": launches, "s": time.perf_counter() - t0})
+
+
+def check_paths(data_dir, device):
+    """Phase 13 (``paths``): steps 1-5 on the 10K graph (``syn10k``
+    planetoid files, written by an earlier phase), the synthetic
+    squirrel-sized GeomGCN files and the 10K graph as a SparseGraph npz,
+    both written here from a seed."""
+    paths_blocked(data_dir, "syn10k", "gscatter", device)
+    paths_blocked(data_dir, "syn10k", "cootile", device)
+    root = tempfile.mkdtemp(prefix="store_", dir=data_dir)
+    paths_store_and_predict(data_dir, "syn10k", device, root)
+    paths_dsl(data_dir, "syn10k", device)
+    paths_attn(data_dir, "syn10k", device)
+    t0 = time.perf_counter()
+    geom = os.path.join(data_dir, "geomgcn")
+    split = write_geomgcn(geom)
+    sgdir = os.path.join(data_dir, "sparsegraph")
+    os.makedirs(sgdir, exist_ok=True)
+    write_sparsegraph(sgdir, "syn10k", build_graph())
+    emit({"paths": "write_files", "s": time.perf_counter() - t0})
+    paths_loader("geomgcn", "squirrel", geom,
+                 ("--splits_file_path", split), device)
+    paths_loader("sparsegraph", "syn10k", sgdir,
+                 ("--setting", "gcn", "--split_seed", "15"), device)
+
+
 # One turn of the A/B comparison, run by ``python3 -c`` from the root of a
 # tree (this one, or another commit's unpacked beside it): the COO-chunk
 # kernels at the 10K graph's layer 1, "highest" (CUDA-event means of 20
@@ -1742,6 +2258,10 @@ def main() -> int:
         for run in BASELINE_RUNS:
             run_baseline_cli(run[0], data_dir, run[1], device, *run[2:])
         emit({"phase": "baselines_cli", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        check_paths(data_dir, device)
+        emit({"phase": "paths", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

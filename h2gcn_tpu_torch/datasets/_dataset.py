@@ -1,10 +1,13 @@
-"""Dataset containers: the planetoid pickle format.
+"""Dataset containers: the planetoid pickle and GeomGCN edge-list formats.
 
 The port of ``h2gcn_tpu.datasets._dataset``: loading semantics unchanged
 (the citeseer isolated-node patch, non-valid unlabeled nodes masked out of
-every split, ``val_size`` validation nodes after the training range), and an
-export (:meth:`PlanetoidData.get_tensors`) that makes torch tensors and
+every split, ``val_size`` validation nodes after the training range;
+GeomGCN's edge-file node set, split files and film's feature indices), and
+an export (:meth:`GraphData.get_tensors`) that makes torch tensors and
 :class:`~h2gcn_tpu_torch.sparse.SparseMatrix` hop matrices on a device.
+:class:`GraphData` holds what every container shares, the SparseGraph npz
+container (:mod:`.sparsegraph`) included.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import time
 import warnings
 from argparse import Namespace
 from itertools import chain
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -64,21 +68,12 @@ def graph_dict_to_adj(graph: dict) -> sp.csr_matrix:
     return adj
 
 
-class PlanetoidData:
-    """Planetoid-format dataset (ind.<name>.{x,y,tx,ty,allx,ally,graph,test.index}).
-
-    Reference: h2gcn/datasets/_dataset.py:161-590.
-    """
-
-    def __init__(self, dataset_str, dataset_path, val_size=None):
-        self._sparse_data = {}
-        self._dense_data = {}
-        self.dataset_str = dataset_str
-        self.dataset_path = dataset_path
-        self.load_data(dataset_str, dataset_path, val_size=val_size)
-        self._original_data = (dict(self._sparse_data), dict(self._dense_data))
-        self._preprocessed_adj = None
-        self._preprocessed_feature = None
+class GraphData:
+    """What every dataset container shares: attribute access into its
+    sparse (``sparse_adj``, ``features``) and dense (``y_all``, the masks
+    and per-split labels) data dicts, the preprocessing steps and the
+    device export :meth:`get_tensors`. A loader fills the two dicts, then
+    calls :meth:`_keep_original`."""
 
     # Attribute proxying into the data dicts, mirroring the reference's
     # ``__getattribute__`` trick (_dataset.py:307-325).
@@ -100,114 +95,10 @@ class PlanetoidData:
                 return
         object.__setattr__(self, name, value)
 
-    # ------------------------------------------------------------------ load
-    def load_data(self, dataset_str, dataset_path="data", val_size=None):
-        names = ["x", "y", "tx", "ty", "allx", "ally", "graph"]
-        objects = []
-        for name in names:
-            with open(f"{dataset_path}/{dataset_str}.{name}", "rb") as f:
-                objects.append(_pkl_load(f))
-        x, y, tx, ty, allx, ally, graph = objects
-        test_idx_reorder = parse_index_file(
-            f"{dataset_path}/{dataset_str}.test.index"
-        )
-        test_idx_range = np.sort(test_idx_reorder)
-
-        # citeseer isolated-node patch (reference _dataset.py:226-242)
-        test_idx_range_full = range(min(test_idx_reorder), max(test_idx_reorder) + 1)
-        if len(test_idx_range_full) != len(test_idx_range):
-            print(f"Patch for citeseer dataset applied for {dataset_str}")
-            tx_extended = sp.lil_matrix((len(test_idx_range_full), x.shape[1]))
-            tx_extended[test_idx_range - min(test_idx_range), :] = tx
-            tx = tx_extended
-            ty_extended = np.zeros((len(test_idx_range_full), y.shape[1]))
-            ty_extended[test_idx_range - min(test_idx_range), :] = ty
-            ty = ty_extended
-            self._non_valid_samples = set(test_idx_range_full) - set(test_idx_range)
-        else:
-            self._non_valid_samples = set()
-
-        features = sp.vstack((allx, tx)).tolil()
-        features[test_idx_reorder, :] = features[test_idx_range, :]
-        adj = graph_dict_to_adj(graph)
-
-        labels = np.vstack((ally, ty))
-        labels[test_idx_reorder, :] = labels[test_idx_range, :]
-
-        # Unlabeled nodes are non-valid (citeseer/GeomGCN label bug guard)
-        self._non_valid_samples = self._non_valid_samples.union(
-            set(np.where(labels.sum(1) == 0)[0].tolist())
-        )
-
-        idx_test = test_idx_range.tolist()
-        idx_train = range(len(y))
-        train_mask = sample_mask(idx_train, labels.shape[0])
-        test_mask = sample_mask(idx_test, labels.shape[0])
-        val_mask = ~(train_mask | test_mask)
-        if val_size is not None:
-            if val_mask.sum() > val_size:
-                val_mask = sample_mask(range(len(y), len(y) + val_size), labels.shape[0])
-            else:
-                print(f"Val set size set to {val_mask.sum()} (insufficient samples).")
-        wild_mask = ~(train_mask | val_mask | test_mask)
-
-        for n_i in self._non_valid_samples:
-            for mask, name in ((train_mask, "training"), (test_mask, "test"),
-                               (val_mask, "val")):
-                if mask[n_i]:
-                    warnings.warn(f"Non valid samples detected in {name} set")
-                    mask[n_i] = False
-                    break
-            wild_mask[n_i] = False
-
-        def masked(labels, mask):
-            out = np.zeros(labels.shape)
-            out[mask, :] = labels[mask, :]
-            return out
-
-        self._sparse_data["sparse_adj"] = adj
-        self._sparse_data["features"] = features.tocsr()
-        self._dense_data["y_all"] = labels
-        self._dense_data["train_mask"] = train_mask
-        self._dense_data["val_mask"] = val_mask
-        self._dense_data["test_mask"] = test_mask
-        self._dense_data["wild_mask"] = wild_mask
-        self._dense_data["y_train"] = masked(labels, train_mask)
-        self._dense_data["y_val"] = masked(labels, val_mask)
-        self._dense_data["y_test"] = masked(labels, test_mask)
-        self._dense_data["y_wild"] = masked(labels, wild_mask)
-
-    def set_mixhop_partition(self, val_size=500):
-        """Rebuild the split the way the MixHop reference reader does
-        (baselines/mixhop/mixhop_dataset.py:184-194): train = ALL nodes
-        before the validation window — i.e. the labeled train set PLUS the
-        wild nodes — val = the next ``val_size`` ids minus train/test
-        overlap, test = the stored test indices.  This is the partition
-        every reference MixHop planetoid run trains under (its trainer has
-        no notion of the 140-node planetoid train mask)."""
-        labels = self.y_all
-        n = labels.shape[0]
-        test_mask = self.test_mask.copy()
-        num_test = int(test_mask.sum())
-        num_train = n - val_size - num_test
-        train_mask = np.zeros(n, bool)
-        train_mask[:num_train] = True
-        val_mask = np.zeros(n, bool)
-        val_mask[num_train:min(num_train + val_size, n)] = True
-        val_mask &= ~train_mask & ~test_mask
-        wild_mask = ~(train_mask | val_mask | test_mask)
-
-        def masked(mask):
-            out = np.zeros(labels.shape)
-            out[mask, :] = labels[mask, :]
-            return out
-
-        self._dense_data["train_mask"] = train_mask
-        self._dense_data["val_mask"] = val_mask
-        self._dense_data["wild_mask"] = wild_mask
-        self._dense_data["y_train"] = masked(train_mask)
-        self._dense_data["y_val"] = masked(val_mask)
-        self._dense_data["y_wild"] = masked(wild_mask)
+    def _keep_original(self):
+        self._original_data = (dict(self._sparse_data), dict(self._dense_data))
+        self._preprocessed_adj = None
+        self._preprocessed_feature = None
 
     def reload_data(self):
         self._sparse_data, self._dense_data = (
@@ -243,52 +134,6 @@ class PlanetoidData:
     @property
     def label_count(self):
         return self.y_train.sum(0) + self.y_val.sum(0) + self.y_test.sum(0)
-
-    def sort_label_by_size(self, descending=True):
-        """Class ids ordered by size (reference _dataset.py:432-436)."""
-        order = np.argsort(np.asarray(self.label_count))
-        return order[::-1] if descending else order
-
-    def feature_sample_eligible(self, label_count):
-        """Can this dataset donate features for the given class sizes?
-        (reference _dataset.py:457-461)"""
-        own = np.sort(np.asarray(self.label_count))[::-1]
-        want = np.sort(np.asarray(label_count))[::-1]
-        if len(want) > len(own):
-            return False
-        return bool(np.all(want <= own[: len(want)]))
-
-    def get_sample_mask(self, label=slice(None), *scopes):
-        """Mask of nodes with the given label(s) in the given scopes
-        (reference _dataset.py:380-398)."""
-        if len(scopes) == 0:
-            scopes = ("train", "val", "test")
-        if not isinstance(label, slice):
-            label = np.array(label).reshape(-1)
-        mask = np.zeros(self.num_samples, dtype=bool)
-        for scope in scopes:
-            y_scope = self._dense_data[f"y_{scope}"]
-            mask |= np.any(y_scope[:, label] == 1, axis=1)
-        return mask
-
-    def split_training_set(self, splits=2):
-        """Round-robin per-class split of the training set
-        (reference _dataset.py:463-474)."""
-        self.train_mask_splits = np.zeros(
-            (splits,) + self.train_mask.shape, dtype=self.train_mask.dtype
-        )
-        self.y_train_splits = np.zeros(
-            (splits,) + self.y_train.shape, dtype=self.y_train.dtype
-        )
-        for label in range(self.y_train.shape[1]):
-            available = np.where(self.y_train[:, label])[0]
-            for i, index in enumerate(available):
-                self.train_mask_splits[i % splits, index] = (
-                    self.train_mask[index]
-                )
-                self.y_train_splits[i % splits, index, :] = (
-                    self.y_train[index, :]
-                )
 
     # ---------------------------------------------------------- preprocessing
     def adj_add_eye(self):
@@ -477,3 +322,289 @@ class PlanetoidData:
             t.node_perm = perm
         t.labels = torch.from_numpy(labels).to(device)
         return t
+
+
+class PlanetoidData(GraphData):
+    """Planetoid-format dataset (ind.<name>.{x,y,tx,ty,allx,ally,graph,test.index}).
+
+    Reference: h2gcn/datasets/_dataset.py:161-590.
+    """
+
+    def __init__(self, dataset_str, dataset_path, val_size=None):
+        self._sparse_data = {}
+        self._dense_data = {}
+        self.dataset_str = dataset_str
+        self.dataset_path = dataset_path
+        self.load_data(dataset_str, dataset_path, val_size=val_size)
+        self._keep_original()
+
+    # ------------------------------------------------------------------ load
+    def load_data(self, dataset_str, dataset_path="data", val_size=None):
+        names = ["x", "y", "tx", "ty", "allx", "ally", "graph"]
+        objects = []
+        for name in names:
+            with open(f"{dataset_path}/{dataset_str}.{name}", "rb") as f:
+                objects.append(_pkl_load(f))
+        x, y, tx, ty, allx, ally, graph = objects
+        test_idx_reorder = parse_index_file(
+            f"{dataset_path}/{dataset_str}.test.index"
+        )
+        test_idx_range = np.sort(test_idx_reorder)
+
+        # citeseer isolated-node patch (reference _dataset.py:226-242)
+        test_idx_range_full = range(min(test_idx_reorder), max(test_idx_reorder) + 1)
+        if len(test_idx_range_full) != len(test_idx_range):
+            print(f"Patch for citeseer dataset applied for {dataset_str}")
+            tx_extended = sp.lil_matrix((len(test_idx_range_full), x.shape[1]))
+            tx_extended[test_idx_range - min(test_idx_range), :] = tx
+            tx = tx_extended
+            ty_extended = np.zeros((len(test_idx_range_full), y.shape[1]))
+            ty_extended[test_idx_range - min(test_idx_range), :] = ty
+            ty = ty_extended
+            self._non_valid_samples = set(test_idx_range_full) - set(test_idx_range)
+        else:
+            self._non_valid_samples = set()
+
+        features = sp.vstack((allx, tx)).tolil()
+        features[test_idx_reorder, :] = features[test_idx_range, :]
+        adj = graph_dict_to_adj(graph)
+
+        labels = np.vstack((ally, ty))
+        labels[test_idx_reorder, :] = labels[test_idx_range, :]
+
+        # Unlabeled nodes are non-valid (citeseer/GeomGCN label bug guard)
+        self._non_valid_samples = self._non_valid_samples.union(
+            set(np.where(labels.sum(1) == 0)[0].tolist())
+        )
+
+        idx_test = test_idx_range.tolist()
+        idx_train = range(len(y))
+        train_mask = sample_mask(idx_train, labels.shape[0])
+        test_mask = sample_mask(idx_test, labels.shape[0])
+        val_mask = ~(train_mask | test_mask)
+        if val_size is not None:
+            if val_mask.sum() > val_size:
+                val_mask = sample_mask(range(len(y), len(y) + val_size), labels.shape[0])
+            else:
+                print(f"Val set size set to {val_mask.sum()} (insufficient samples).")
+        wild_mask = ~(train_mask | val_mask | test_mask)
+
+        for n_i in self._non_valid_samples:
+            for mask, name in ((train_mask, "training"), (test_mask, "test"),
+                               (val_mask, "val")):
+                if mask[n_i]:
+                    warnings.warn(f"Non valid samples detected in {name} set")
+                    mask[n_i] = False
+                    break
+            wild_mask[n_i] = False
+
+        def masked(labels, mask):
+            out = np.zeros(labels.shape)
+            out[mask, :] = labels[mask, :]
+            return out
+
+        self._sparse_data["sparse_adj"] = adj
+        self._sparse_data["features"] = features.tocsr()
+        self._dense_data["y_all"] = labels
+        self._dense_data["train_mask"] = train_mask
+        self._dense_data["val_mask"] = val_mask
+        self._dense_data["test_mask"] = test_mask
+        self._dense_data["wild_mask"] = wild_mask
+        self._dense_data["y_train"] = masked(labels, train_mask)
+        self._dense_data["y_val"] = masked(labels, val_mask)
+        self._dense_data["y_test"] = masked(labels, test_mask)
+        self._dense_data["y_wild"] = masked(labels, wild_mask)
+
+    def set_mixhop_partition(self, val_size=500):
+        """Rebuild the split the way the MixHop reference reader does
+        (baselines/mixhop/mixhop_dataset.py:184-194): train = ALL nodes
+        before the validation window — i.e. the labeled train set PLUS the
+        wild nodes — val = the next ``val_size`` ids minus train/test
+        overlap, test = the stored test indices.  This is the partition
+        every reference MixHop planetoid run trains under (its trainer has
+        no notion of the 140-node planetoid train mask)."""
+        labels = self.y_all
+        n = labels.shape[0]
+        test_mask = self.test_mask.copy()
+        num_test = int(test_mask.sum())
+        num_train = n - val_size - num_test
+        train_mask = np.zeros(n, bool)
+        train_mask[:num_train] = True
+        val_mask = np.zeros(n, bool)
+        val_mask[num_train:min(num_train + val_size, n)] = True
+        val_mask &= ~train_mask & ~test_mask
+        wild_mask = ~(train_mask | val_mask | test_mask)
+
+        def masked(mask):
+            out = np.zeros(labels.shape)
+            out[mask, :] = labels[mask, :]
+            return out
+
+        self._dense_data["train_mask"] = train_mask
+        self._dense_data["val_mask"] = val_mask
+        self._dense_data["wild_mask"] = wild_mask
+        self._dense_data["y_train"] = masked(train_mask)
+        self._dense_data["y_val"] = masked(val_mask)
+        self._dense_data["y_wild"] = masked(wild_mask)
+
+    def sort_label_by_size(self, descending=True):
+        """Class ids ordered by size (reference _dataset.py:432-436)."""
+        order = np.argsort(np.asarray(self.label_count))
+        return order[::-1] if descending else order
+
+    def feature_sample_eligible(self, label_count):
+        """Can this dataset donate features for the given class sizes?
+        (reference _dataset.py:457-461)"""
+        own = np.sort(np.asarray(self.label_count))[::-1]
+        want = np.sort(np.asarray(label_count))[::-1]
+        if len(want) > len(own):
+            return False
+        return bool(np.all(want <= own[: len(want)]))
+
+    def get_sample_mask(self, label=slice(None), *scopes):
+        """Mask of nodes with the given label(s) in the given scopes
+        (reference _dataset.py:380-398)."""
+        if len(scopes) == 0:
+            scopes = ("train", "val", "test")
+        if not isinstance(label, slice):
+            label = np.array(label).reshape(-1)
+        mask = np.zeros(self.num_samples, dtype=bool)
+        for scope in scopes:
+            y_scope = self._dense_data[f"y_{scope}"]
+            mask |= np.any(y_scope[:, label] == 1, axis=1)
+        return mask
+
+    def split_training_set(self, splits=2):
+        """Round-robin per-class split of the training set
+        (reference _dataset.py:463-474)."""
+        self.train_mask_splits = np.zeros(
+            (splits,) + self.train_mask.shape, dtype=self.train_mask.dtype
+        )
+        self.y_train_splits = np.zeros(
+            (splits,) + self.y_train.shape, dtype=self.y_train.dtype
+        )
+        for label in range(self.y_train.shape[1]):
+            available = np.where(self.y_train[:, label])[0]
+            for i, index in enumerate(available):
+                self.train_mask_splits[i % splits, index] = (
+                    self.train_mask[index]
+                )
+                self.y_train_splits[i % splits, index, :] = (
+                    self.y_train[index, :]
+                )
+
+
+class GeomGCNData(PlanetoidData):
+    """GeomGCN edge-list datasets (texas, wisconsin, cornell, chameleon,
+    squirrel, film, ...): ``out1_node_feature_label.txt`` (node id, comma
+    separated binary features, label) and ``out1_graph_edges.txt`` (one
+    edge a line).
+
+    Only nodes that appear in the edge file are kept, renumbered in
+    ascending id order; the edges are symmetrized unless
+    ``directed_graph``. ``splits_file_path`` names a GeomGCN split npz
+    (``train_mask``, ``val_mask``, ``test_mask``); without it every mask is
+    empty. film's features are the indices of its set bits among 932,
+    read as uint16 (uint8 would wrap past 255).
+    """
+
+    def __init__(self, dataset_str, dataset_path, splits_file_path=None,
+                 directed_graph=False,
+                 adj_filename="out1_graph_edges.txt",
+                 feature_filename="out1_node_feature_label.txt"):
+        self._sparse_data = {}
+        self._dense_data = {}
+        self.dataset_str = dataset_str
+        self.dataset_path = dataset_path
+        self.load_data(dataset_str, dataset_path, splits_file_path,
+                       directed_graph, adj_filename, feature_filename)
+        self._keep_original()
+
+    def load_data(self, dataset_str, dataset_path, splits_file_path=None,
+                  directed_graph=False,
+                  adj_filename="out1_graph_edges.txt",
+                  feature_filename="out1_node_feature_label.txt"):
+        feat_path = Path(dataset_path) / feature_filename
+        adj_path = Path(dataset_path) / adj_filename
+
+        features_dict, labels_dict = {}, {}
+        with open(feat_path) as f:
+            f.readline()
+            for line in f:
+                nid, feat, label = line.rstrip().split("\t")
+                nid = int(nid)
+                assert nid not in features_dict
+                if dataset_str == "film":
+                    blank = np.zeros(932, dtype=np.uint8)
+                    blank[np.array(feat.split(","), dtype=np.uint16)] = 1
+                    features_dict[nid] = blank
+                else:
+                    features_dict[nid] = np.array(feat.split(","),
+                                                  dtype=np.uint8)
+                labels_dict[nid] = int(label)
+
+        src, dst = [], []
+        nodes = set()
+        with open(adj_path) as f:
+            f.readline()
+            for line in f:
+                u, v = (int(t) for t in line.rstrip().split("\t"))
+                src.append(u)
+                dst.append(v)
+                nodes.add(u)
+                nodes.add(v)
+        node_list = sorted(nodes)
+        remap = {nid: i for i, nid in enumerate(node_list)}
+        n = len(node_list)
+        r = np.array([remap[u] for u in src])
+        c = np.array([remap[v] for v in dst])
+        if not directed_graph:
+            r, c = np.concatenate([r, c]), np.concatenate([c, r])
+        adj = sp.csr_matrix(
+            (np.ones(r.size, dtype=np.float32), (r, c)), shape=(n, n))
+        adj.sum_duplicates()
+        adj.data[:] = 1.0
+
+        features = np.stack([features_dict[nid] for nid in node_list]).astype(
+            np.float32)
+        labels = np.array([labels_dict[nid] for nid in node_list],
+                          dtype=np.int32)
+        y_all = np.zeros((n, labels.max() + 1))
+        y_all[np.arange(n), labels] = 1
+
+        self._sparse_data["sparse_adj"] = adj
+        self._sparse_data["features"] = sp.csr_matrix(features)
+        self._dense_data["y_all"] = y_all
+
+        if splits_file_path:
+            self.load_splits(splits_file_path)
+        else:
+            for key in ("train_mask", "val_mask", "test_mask", "wild_mask"):
+                self._dense_data[key] = np.zeros(n, dtype=bool)
+            self._derive_split_labels()
+            self.splitted = False
+
+    def load_splits(self, splits_file_path):
+        """Load a GeomGCN ``*_split_0.6_0.2_<i>.npz`` split file."""
+        with np.load(splits_file_path) as s:
+            self._dense_data["train_mask"] = s["train_mask"].astype(bool)
+            self._dense_data["val_mask"] = s["val_mask"].astype(bool)
+            self._dense_data["test_mask"] = s["test_mask"].astype(bool)
+        self._dense_data["wild_mask"] = ~(
+            self.train_mask | self.val_mask | self.test_mask)
+        self._derive_split_labels()
+        self.splitted = True
+
+    def _derive_split_labels(self):
+        labels = self._dense_data["y_all"]
+        for scope in ("train", "val", "test", "wild"):
+            mask = self._dense_data[f"{scope}_mask"]
+            y = np.zeros(labels.shape)
+            y[mask, :] = labels[mask, :]
+            self._dense_data[f"y_{scope}"] = y
+
+    @property
+    def label_count(self):
+        if not getattr(self, "splitted", False):
+            return self.y_all.sum(0)
+        return super().label_count

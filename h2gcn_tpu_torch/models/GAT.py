@@ -252,6 +252,17 @@ class GATNetwork(nn.Module):
             self.last_attn_coefs = all_alphas
         return h
 
+    def get_embeddings(self, adj, x, adjhops=()):
+        """The input of the output layer: every hidden layer's heads,
+        ELU'd and concatenated, in eval mode. Computed on the segment path
+        whatever the payload, as the JAX package does."""
+        h = x
+        for heads in self.layers[:-1]:
+            h = torch.cat([torch.nn.functional.elu(
+                self._attn_head(p, h, adj, training=False, generator=None))
+                for p in heads], dim=1)
+        return h
+
     # ---------------------------------------------------------------- loss
     def l2_loss(self) -> torch.Tensor:
         # l2_coef · Σ ½‖θ‖² over every trainable tensor (tf.nn.l2_loss

@@ -80,6 +80,9 @@ class BeliefPropagationNetwork(nn.Module):
             capture["activations/0-belief_propagation"] = out
         return out
 
+    def get_embeddings(self, adj, x, adjhops):
+        raise NotImplementedError  # as in the JAX package: BP has none
+
     def l2_loss(self) -> torch.Tensor:
         return torch.zeros((), device=self.h_matrix.device)
 

@@ -163,6 +163,12 @@ class GraphSAGENetwork(nn.Module):
         embeds = torch.cat([h1, h2], dim=1) if self.concat_jk else h2
         return torch.matmul(embeds, self.Wout)
 
+    def get_embeddings(self, adj, x, adjhops=()):
+        """The first encoder's output, its neighbors drawn as in
+        evaluation (a generator seeded with 0)."""
+        generator = torch.Generator(device=x.device).manual_seed(0)
+        return self._encode(adj, self.W1, x, generator, self.num_samples[0])
+
     def l2_loss(self) -> torch.Tensor:
         return torch.zeros((), device=self.Wout.device)  # no weight decay
 

@@ -4,9 +4,10 @@ Builds the train / test / predict step functions for a
 :class:`~h2gcn_tpu_torch.nn.model.NetworkModel` and wires the callback-based
 epoch protocol: step closures in ``args.objects``, post-epoch early
 stopping, best-validation selection and checkpoints, and the post-train
-restore of the best state. The JAX package's ``_runtime`` on one device;
-its blocked (``--epochs_per_block``) and distributed (``--mesh_shards``)
-paths are not ported yet.
+restore of the best state, ``results.json`` and the run store's saved
+activations and predictions, and the blocked (``--epochs_per_block``)
+path. The JAX package's ``_runtime`` on one device; its distributed
+(``--mesh_shards``) path is not ported yet.
 
 PyTorch updates parameters in place, so the best state is a copy
 (:func:`snapshot`) where the JAX package kept a reference to an immutable
@@ -16,6 +17,8 @@ pytree.
 from __future__ import annotations
 
 import copy
+import json
+import math
 import operator
 
 import numpy as np
@@ -35,7 +38,8 @@ class KerasAdam(torch.optim.Optimizer):
     corrects m and v first and adds eps after, which shifts the per-step
     losses away from the executed reference (the golden dynamics test).
     eps is keras's 1e-7. ``alpha_t`` is computed in float32, as the JAX
-    package does.
+    package does. The step count is a host ``int`` per tensor, so a step
+    never waits for the device.
     """
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -62,7 +66,9 @@ class KerasAdam(torch.optim.Optimizer):
                 g = p.grad
                 st["m"] = b1 * st["m"] + (1.0 - b1) * g
                 st["v"] = b2 * st["v"] + (1.0 - b2) * g * g
-                p.add_(-alpha.to(p.device) * st["m"]
+                # the float32 step size enters as a scalar operand: the same
+                # product as a device copy of it, without the copy's wait
+                p.add_(st["m"] * -float(alpha)
                        / (torch.sqrt(st["v"]) + eps))
 
 
@@ -199,7 +205,8 @@ def restore(model, optimizer, state) -> None:
 
 def update_best_val_stats(args, epoch_stats, epoch, ckpt=None) -> bool:
     """Apply the best-val-criteria comparison and update the best record
-    (ties go to the later epoch)."""
+    (ties go to the later epoch). The one rule of model selection, for the
+    per-epoch protocol and the blocked loop alike."""
     op = operator.ge if args.best_val_criteria == "val_acc" else operator.le
     best = args.objects["best_val_stats"]
     if best is None or op(
@@ -212,6 +219,57 @@ def update_best_val_stats(args, epoch_stats, epoch, ckpt=None) -> bool:
         args.objects["best_val_stats"] = new_best
         return True
     return False
+
+
+# --------------------------------------------------------------------------
+# Blocked epochs: the best state is selected on the device.
+# --------------------------------------------------------------------------
+
+# the stats of one epoch of a block, in the order of the block's table
+BLOCK_STATS = ("train_loss", "train_acc", "val_acc", "test_accuracy",
+               "val_loss", "test_loss")
+
+
+def _where(better, new, old):
+    """``new`` where the 0-d device flag ``better`` holds, else ``old``,
+    for every tensor of a state tree (dicts and lists); a tensor ``old``
+    lacks (the optimizer's state before its first step) takes ``new``.
+    Other leaves (host ints, floats) come from ``new``: the caller
+    resolves them on the host once it knows which epoch won."""
+    if isinstance(new, torch.Tensor):
+        return (torch.where(better, new, old)
+                if isinstance(old, torch.Tensor) else new)
+    if isinstance(new, dict):
+        old = old if isinstance(old, dict) else {}
+        return {k: _where(better, v, old.get(k)) for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        old = old if isinstance(old, (list, tuple)) else ()
+        return type(new)(_where(better, v, old[i] if i < len(old) else None)
+                         for i, v in enumerate(new))
+    return new
+
+
+def _host_leaves(tree):
+    """The tree with every tensor replaced by None: its structure and host
+    leaves (deep-copied), kept for each epoch of a block."""
+    if isinstance(tree, torch.Tensor):
+        return None
+    if isinstance(tree, dict):
+        return {k: _host_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_leaves(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+def _fill(skeleton, tensors):
+    """``skeleton`` (from :func:`_host_leaves`) with its tensors taken from
+    the same places of ``tensors``."""
+    if isinstance(skeleton, dict):
+        return {k: _fill(v, tensors[k]) for k, v in skeleton.items()}
+    if isinstance(skeleton, (list, tuple)):
+        return type(skeleton)(_fill(v, tensors[i])
+                              for i, v in enumerate(skeleton))
+    return tensors if skeleton is None else skeleton
 
 
 def initialize_model(args, model, optimizer_name, lr, early_stopping,
@@ -231,10 +289,6 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
         raise NotImplementedError(
             "--mesh_shards: the distributed runtime is not ported yet "
             "(ROADMAP A9)")
-    if (getattr(args, "_epochs_per_block", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--epochs_per_block: blocked epochs are not ported yet "
-            "(ROADMAP A5)")
     tensors = args.objects["tensors"]
     dataset = args.objects["dataset"]
     adj_hops = tensors.get("adj_hops", [])
@@ -254,7 +308,9 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
         optimizer = optimizer_name(model.parameters())
     drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
-    def train_step(adj, adj_hops, features, y_train, train_mask, **kwargs):
+    def train(adj, adj_hops, features, y_train, train_mask, grad_monitor):
+        """One training forward, backward and optimizer step; the loss as
+        a 0-d device tensor."""
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = model(adj, features, adj_hops, training=True,
@@ -264,26 +320,57 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
         # gradient to take: JAX's is zero, so its update is none
         if loss.requires_grad:
             loss.backward()
-            if args.grad_monitor:
+            if grad_monitor:
                 monitor.grad_monitor(model)
             optimizer.step()
-        return dict(train_loss=loss.detach())
+        return loss.detach()
 
     @torch.no_grad()
-    def test_step(adj, adj_hops, features, y_train, train_mask, y_val,
-                  val_mask, y_test, test_mask, verbose=None, **kwargs):
-        if verbose is None:
-            verbose = args.verbose
+    def evaluate(adj, adj_hops, features, y_train, train_mask, y_val,
+                 val_mask, y_test, test_mask):
+        """The logits and the stats of an evaluation, as 0-d tensors."""
         model.eval()
         logits = model(adj, features, adj_hops, training=False)
-        stats = dict(
+        return logits, dict(
             train_acc=masked_accuracy(logits, y_train, train_mask),
             val_acc=masked_accuracy(logits, y_val, val_mask),
             test_accuracy=masked_accuracy(logits, y_test, test_mask),
             val_loss=model.loss(logits, y_val, val_mask),
             test_loss=masked_softmax_cross_entropy(logits, y_test, test_mask),
         )
+
+    def train_step(adj, adj_hops, features, y_train, train_mask, **kwargs):
+        return dict(train_loss=train(adj, adj_hops, features, y_train,
+                                     train_mask, args.grad_monitor))
+
+    @torch.no_grad()
+    def test_step(adj, adj_hops, features, y_train, train_mask, y_val,
+                  val_mask, y_test, test_mask, verbose=None,
+                  save_activations=False, save_predictions=False, **kwargs):
+        if verbose is None:
+            verbose = args.verbose
+        logits, stats = evaluate(adj, adj_hops, features, y_train,
+                                 train_mask, y_val, val_mask, y_test,
+                                 test_mask)
         stats["monitor"] = dict()
+        if args.use_signac:
+            job = args.objects["signac_job"]
+            unperm = _original_order_fn(kwargs.get("node_perm"))
+            if save_activations:
+                print("Saving activations to job data storage:")
+                capture = {}
+                model(adj, features, adj_hops, training=False,
+                      capture=capture)
+                for key, value in capture.items():
+                    job.data[key] = _exportable(value, unperm)
+                print(job.workspace())
+            if save_predictions:
+                job.data["predicted_prob"] = _exportable(logits, unperm)
+                for scope, scope_mask in (
+                    ("train", train_mask), ("val", val_mask), ("test", test_mask)
+                ):
+                    job.data[f"{scope}_mask"] = _exportable(scope_mask,
+                                                            unperm)
         if args.deg_acc_monitor and verbose:
             for scope, y_scope, scope_mask in (
                 ("train", y_train, train_mask),
@@ -300,11 +387,80 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
         model.eval()
         return model(adj, features, adj_hops, training=False)
 
+    @torch.no_grad()
+    def embed_step(adj, adj_hops, features, **kwargs):
+        model.eval()
+        return model.get_embeddings(adj, features, adj_hops)
+
+    @torch.no_grad()
+    def attn_step(adj, adj_hops, features, **kwargs):
+        """Attention coefficients after a forward pass (GAT-style models):
+        one ``[heads, edges]`` tensor a layer."""
+        model.eval()
+        model(adj, features, adj_hops, training=False, capture={})
+        coefs = getattr(model, "last_attn_coefs", None)
+        if coefs is None:
+            raise NotImplementedError(
+                f"{type(model).__name__} has no attention coefficients")
+        return coefs
+
+    # ---- blocked epochs (--epochs_per_block K) ---------------------------
+    # K train and eval epochs with no host sync: every stat stays a 0-d
+    # device tensor, the best state is selected on the device with
+    # torch.where (ties to the later epoch, the criterion from -inf), and
+    # the stats and each epoch's "better" flag come back in one copy at
+    # the end. The optimizer's host leaves (KerasAdam's per-tensor counts,
+    # a schedule's count) are kept for each epoch and resolved on the host
+    # after that copy. Early stopping is replayed on the host from the
+    # returned stats: when it fires mid-block, selection has seen up to
+    # K-1 more epochs than the per-epoch run (the JAX package's
+    # documented deviation).
+    def train_block(k, start_epoch, adj, adj_hops, features, y_train,
+                    train_mask, y_val, val_mask, y_test, test_mask, **kwargs):
+        carry = args.objects.get("block_carry")
+        if carry is None:
+            carry = {"best": snapshot(model, optimizer),
+                     "best_crit": torch.full((), -math.inf, device=device)}
+        best, best_crit = carry["best"], carry["best_crit"]
+        by_acc = args.best_val_criteria == "val_acc"
+        skeletons = [_host_leaves(best["opt_state"])]
+        rows = []
+        for _ in range(k):
+            train_loss = train(adj, adj_hops, features, y_train, train_mask,
+                               False)
+            _, stats = evaluate(adj, adj_hops, features, y_train, train_mask,
+                                y_val, val_mask, y_test, test_mask)
+            stats["train_loss"] = train_loss
+            crit = stats["val_acc"] if by_acc else -stats["val_loss"]
+            better = crit >= best_crit
+            opt_state = optimizer.state_dict()
+            best = {"params": _where(better, model.state_dict(),
+                                     best["params"]),
+                    "opt_state": _where(better, opt_state,
+                                        best["opt_state"])}
+            best_crit = torch.where(better, crit, best_crit)
+            rows.append(torch.stack([stats[key].to(torch.float32)
+                                     for key in BLOCK_STATS]
+                                    + [better.to(torch.float32)]))
+            skeletons.append(_host_leaves(opt_state))
+        table = torch.stack(rows).cpu().numpy()  # the block's one readback
+        won = np.flatnonzero(table[:, -1] > 0)
+        # the winning epoch's host leaves (the block's start state if none
+        # won) around the device-selected tensors
+        best["opt_state"] = _fill(
+            skeletons[won[-1] + 1 if won.size else 0], best["opt_state"])
+        args.objects["block_carry"] = {"best": best, "best_crit": best_crit}
+        args.objects["best_state"] = best
+        return {key: table[:, i] for i, key in enumerate(BLOCK_STATS)}
+
     args.objects["model"] = model
     args.objects["optimizer"] = optimizer
     args.objects["train_step"] = train_step
     args.objects["test_step"] = test_step
     args.objects["predict_step"] = predict_step
+    args.objects["embed_step"] = embed_step
+    args.objects["attn_step"] = attn_step
+    args.objects["train_block"] = train_block
     # maps predict_step's logits (or any per-node array) to the original
     # node order under --reorder
     args.objects["original_order"] = _original_order_fn(
@@ -313,10 +469,21 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
                        es_metric)
 
 
+def _exportable(value, unperm):
+    """A captured activation, the logits or a mask as the run store keeps
+    it: in the original node order, as a numpy array on the host. Sparse
+    input features (a :class:`SparseMatrix`) become their CSR arrays."""
+    if isinstance(value, SparseMatrix):
+        csr = value.to_scipy()[unperm(np.arange(value.shape[0]))]
+        return {"data": csr.data, "indices": csr.indices,
+                "indptr": csr.indptr, "shape": np.asarray(csr.shape)}
+    return unperm(value).detach().cpu().numpy()
+
+
 def _register_protocol(args, model, optimizer, test_step, early_stopping,
                        es_metric):
     """Wire the epoch protocol: stats printing, early stopping, best-val
-    tracking, checkpoint management."""
+    tracking, checkpoint management and ``results.json``."""
     stats_printer = logger.EpochStatsPrinter()
     args.objects["statsPrinter"] = stats_printer
     args.objects["best_val_stats"] = None
@@ -364,7 +531,11 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
             else:
                 state = args.objects["best_state"]
             restore(model, optimizer, state)
-            epoch_stats = test_step(**args.objects["tensors"], verbose=True)
+            epoch_stats = test_step(
+                **args.objects["tensors"], verbose=True,
+                save_activations=args.save_activations,
+                save_predictions=args.save_predictions,
+            )
             best["monitor"] = epoch_stats["monitor"]
         final_name = logger.save_ckpt(
             snapshot(model, optimizer), args, best["epoch"], best
@@ -372,6 +543,12 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
         best.setdefault("ckpt", final_name)
         print("Best performance:")
         stats_printer.from_dict(best)
+        if args.use_signac:
+            record = {key: (item.item() if isinstance(
+                item, (torch.Tensor, np.ndarray, np.generic)) else item)
+                for key, item in best.items()}
+            with open(args.objects["signac_job"].fn("results.json"), "w") as f:
+                json.dump(record, f, default=str)
 
     args.objects["post_epoch_callbacks"].append(post_epoch_callback)
     args.objects["post_train_callbacks"].append(post_train_callback)

@@ -43,11 +43,17 @@ def add_subparser_args(parser):
 
 
 def init_checkpoint_path(args):
-    if args.message is not None:
-        args.run_id = args.run_id + "-" + args.message
-    args.objects["checkpoint_dir"] = args.checkpoint_dir.format(
-        runname=args.run_id, model=args.model, dataset=args.dataset
-    )
+    if not args.use_signac:
+        if args.message is not None:
+            args.run_id = args.run_id + "-" + args.message
+        args.objects["checkpoint_dir"] = args.checkpoint_dir.format(
+            runname=args.run_id, model=args.model, dataset=args.dataset
+        )
+    else:
+        # a recorded run keeps its checkpoints in its job's workspace
+        args.objects["checkpoint_dir"] = str(
+            Path(args.objects["signac_job"].workspace()) / "checkpoints"
+        )
     args.objects["checkpoint_name"] = args.checkpoint_name.format(
         model=args.model, dataset=args.dataset
     )

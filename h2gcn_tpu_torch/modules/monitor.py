@@ -1,8 +1,10 @@
 """Runtime monitors: degree-binned accuracy and gradient ranges.
 
 The degree-accuracy monitor buckets nodes by adjacency degree and reports
-the masked accuracy of each bucket for a scope; the gradient monitor prints
-each parameter's (min, |min|, max) gradient range.
+the masked accuracy of each bucket for a scope (and, with ``--use_signac``,
+writes the bins, counts and accuracies to the job's data under
+``deg_acc/<scope>/``); the gradient monitor prints each parameter's (min,
+|min|, max) gradient range.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ def deg_acc_monitor(args, degree_bins, adj, predictions, y_sample, sample_mask,
     stats_dict[f"deg_acc_{sample_name}"] = dict(
         bins=list(degree_bins), counts=counts, acc=accs
     )
+    if args.use_signac:
+        job = args.objects["signac_job"]
+        job.data[f"deg_acc/{sample_name}/bins"] = np.array(degree_bins)
+        job.data[f"deg_acc/{sample_name}/counts"] = np.array(counts)
+        job.data[f"deg_acc/{sample_name}/acc"] = np.array(accs)
     return stats_dict
 
 

@@ -1,35 +1,53 @@
 """The network module compiled from the layer DSL.
 
 :class:`NetworkModel` is the port of ``h2gcn_tpu.nn.model.NetworkModel``
-for the layer kinds H2GCN-2 uses: dense (with or without bias; on sparse
-features a :class:`SparseMatrix` X, through ``spmm``), ReLU, graph
-aggregation over the hop matrices, vectorize, concat of tagged outputs, and
-dropout. Concat layers see the tagged-output table in tag creation order;
-graph layers stack one aggregate per selected hop on a new axis. Dense
-kernels keep the JAX layout ``[in, out]`` (``y = x @ kernel + bias``), so
-:func:`load_jax_params` can carry the JAX package's weights over unchanged;
+for every layer kind: dense (with or without bias; on sparse features a
+:class:`SparseMatrix` X, through ``spmm``), dropout, graph aggregation over
+the hop matrices, ReLU, vectorize, concat of tagged outputs, identity
+(sparse to dense), slice, stop-gradient, lambda and experimental (``X``)
+layers, with the ``E`` (embedding) and ``L`` (supervision) modifiers and
+the JAX package's ``return_before`` / ``execute_after`` /
+``add_supervision`` routing. Concat layers see the tagged-output table in
+tag creation order; graph layers stack one aggregate per selected hop on a
+new axis. Dense kernels keep the JAX layout ``[in, out]`` (``y = x @
+kernel + bias``), keyed by layer index, so :func:`load_jax_params` can
+carry the JAX package's weights over unchanged;
 :func:`load_jax_gat_params` does the same for GAT's per-head parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..sparse import SparseMatrix, spmm
+from . import _lambda_ns
 from .dsl import Layer
 from .metrics import masked_softmax_cross_entropy
 from .ops import dropout
 
-_SUPPORTED = (Layer.DENSE, Layer.DROPOUT, Layer.GCN, Layer.RELU,
-              Layer.VECTORIZE, Layer.CONCAT)
+# X<name>_<conf> layers: name -> factory(conf, output_dim) -> fn(params,
+# adj, x, adjhops, tagged) -> x, the JAX package's contract. An X layer
+# owns no parameters: ``params`` is always ``{}``.
+experimental_registry: Dict[str, Any] = {}
+
 _NAMES = {Layer.DENSE: "dense", Layer.DROPOUT: "dropout", Layer.GCN: "graph",
           Layer.RELU: "relu", Layer.VECTORIZE: "flatten",
-          Layer.CONCAT: "concat"}
+          Layer.CONCAT: "concat", Layer.SLICE: "slice",
+          Layer.IDENTITY: "identity", Layer.LAMBDA: "lambda",
+          Layer.STOP_GRADIENT: "stop_gradient"}
+
+
+def _safe_lambda(expr: str):
+    """Evaluate a DSL lambda with ``jnp`` and ``nn`` bound to the torch
+    shim (:mod:`._lambda_ns`) and no builtins, as the JAX package does
+    with ``jax.numpy`` and ``jax.nn``."""
+    return eval(  # noqa: S307: restricted globals, config-provided string
+        expr, {"__builtins__": {}, "jnp": _lambda_ns.jnp, "nn": _lambda_ns.nn})
 
 
 class NetworkModel(nn.Module):
@@ -42,15 +60,30 @@ class NetworkModel(nn.Module):
         self.l2_regularize_weight = float(l2_regularize_weight)
         self.tags: Dict[int, str] = {}
         self.names: List[str] = []
+        self.supervised_inds = set()
+        self.embedding_ind: Optional[int] = None
+        self.output_ind: Optional[int] = None
         for ind, (kind, conf) in enumerate(self.layer_setups):
-            if kind not in _SUPPORTED:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} is not ported to h2gcn_tpu_torch "
-                    "yet (ROADMAP A4)")
             tag = conf.pop("tag", None)
+            if kind == Layer.DENSE:
+                if conf.get("isEmbedding", False):
+                    self.embedding_ind = ind
+                if conf.get("beginOutput", False):
+                    self.output_ind = ind
+            elif kind == Layer.LAMBDA:
+                conf["fn"] = _safe_lambda(conf["lambda"])
+            elif kind == Layer.EXPERIMENTAL:
+                factory = experimental_registry[conf["name"]]
+                conf["fn"] = factory(conf.get("conf", ""),
+                                     conf.get("output_dim"))
+            elif kind not in _NAMES:
+                raise ValueError(f"Unsupported layer type {kind}")
+            self.names.append(f"x_{conf['name']}"
+                              if kind == Layer.EXPERIMENTAL else _NAMES[kind])
+            if conf.get("supervised", False):
+                self.supervised_inds.add(ind)
             if tag:
                 self.tags[ind] = tag
-            self.names.append(_NAMES[kind])
         self.kernels = nn.ParameterDict()
         self.biases = nn.ParameterDict()
 
@@ -79,19 +112,40 @@ class NetworkModel(nn.Module):
     def forward(self, adj: SparseMatrix, x: torch.Tensor,
                 adjhops: Sequence[SparseMatrix], *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                capture: Optional[dict] = None) -> torch.Tensor:
+                capture: Optional[dict] = None, return_before: int = 0,
+                execute_after: int = 0, add_supervision: bool = False):
         """Logits for every node. ``generator`` drives dropout in training;
         ``capture`` (a dict) receives every layer's output under
-        ``activations/<ind>-<name>``."""
+        ``activations/<ind>-<name>``. ``return_before=i`` returns the input
+        of layer ``i`` (``i <= 0`` counts from the end, 0: run every
+        layer); ``execute_after=i`` starts at layer ``i`` with ``x`` as its
+        input (negative: from the end). With ``add_supervision`` it returns
+        ``(x, outputs)``, ``outputs`` the output network
+        (:meth:`call_output_network`) run on each ``L``-marked layer's
+        output."""
         return self._forward(adj, x, adjhops, training=training,
-                             generator=generator, capture=capture)
+                             generator=generator, capture=capture,
+                             return_before=return_before,
+                             execute_after=execute_after,
+                             add_supervision=add_supervision)
 
     def _forward(self, adj, x, adjhops, *, training, generator,
-                 capture=None, init_gen=None):
+                 capture=None, return_before=0, execute_after=0,
+                 add_supervision=False, init_gen=None):
         tagged: Dict[str, torch.Tensor] = {}
+        supervised_outputs = []
         if capture is not None:
             capture["inputs/inputs"] = x
+        n_layers = self.num_layers
+        if return_before <= 0:
+            return_before = n_layers + return_before
+        if execute_after < 0:
+            execute_after = n_layers + execute_after
         for ind, (kind, conf) in enumerate(self.layer_setups):
+            if ind == return_before:
+                return x
+            if ind < execute_after:
+                continue
             key = str(ind)
             if kind == Layer.DENSE:
                 if init_gen is not None:
@@ -121,16 +175,47 @@ class NetworkModel(nn.Module):
                 x = torch.relu(x)
             elif kind == Layer.VECTORIZE:
                 x = x.reshape(x.shape[0], -1)
+            elif kind == Layer.IDENTITY:
+                # the sparse-to-dense boundary; a no-op on dense input
+                if isinstance(x, SparseMatrix):
+                    x = x.todense()
             elif kind == Layer.CONCAT:
                 selected = [v for t, v in tagged.items() if t in conf["tags"]]
                 if conf.get("addInputs", True):
                     selected = [x] + selected
                 x = torch.cat(selected, dim=-1)
+            elif kind == Layer.SLICE:
+                src = tagged[conf["loadTag"]] if conf["loadTag"] else x
+                x = src[:, conf["sliceObj"]]
+            elif kind == Layer.LAMBDA:
+                x = conf["fn"](x)
+            elif kind == Layer.STOP_GRADIENT:
+                x = x.detach()
+            elif kind == Layer.EXPERIMENTAL:
+                x = conf["fn"]({}, adj, x, adjhops, tagged)
+            if add_supervision and ind in self.supervised_inds:
+                supervised_outputs.append(self._forward(
+                    adj, x, adjhops, training=training, generator=generator,
+                    execute_after=self.output_ind))
             if capture is not None:
                 capture[f"activations/{ind}-{self.names[ind]}"] = x
             if ind in self.tags:
                 tagged[self.tags[ind]] = x
+        if add_supervision:
+            return x, supervised_outputs
         return x
+
+    # ------------------------------------------------------------- accessors
+    def get_embeddings(self, adj, x, adjhops):
+        """The output of the ``E``-marked layer."""
+        assert self.embedding_ind is not None, "no E-marked layer in the DSL"
+        return self(adj, x, adjhops, return_before=self.embedding_ind + 1)
+
+    def call_output_network(self, adj, x, adjhops, **kw):
+        """The layers from the output head (``FO``/``MO``) on, applied to
+        ``x``."""
+        assert self.output_ind is not None, "no *O output head in the DSL"
+        return self(adj, x, adjhops, execute_after=self.output_ind, **kw)
 
     # ------------------------------------------------------------------ loss
     def l2_loss(self) -> torch.Tensor:

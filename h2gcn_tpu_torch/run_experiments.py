@@ -73,7 +73,9 @@ def main(argv=None):
                         help="Record per-epoch wall time and edges/s")
     parser.add_argument("--epochs_per_block", type=int, default=1,
                         dest="_epochs_per_block",
-                        help="Not ported yet: must be 1")
+                        help="Run K train and eval epochs per block with "
+                             "the best state selected on the device: one "
+                             "stats readback per K epochs")
     parser.add_argument("--mesh_shards", type=int, default=0,
                         dest="_mesh_shards",
                         help="Not ported yet: must be 0 or 1")
@@ -115,8 +117,23 @@ def main(argv=None):
     profile_dir = getattr(args, "_profile_dir", None)
     profiler = None
 
-    args.current_epoch = 0
-    while args.current_epoch < args.epochs:
+    block_k = getattr(args, "_epochs_per_block", 1) or 1
+    ran_blocked = False
+    if block_k > 1 and "train_block" in args.objects:
+        if args.objects["pre_epoch_callbacks"]:
+            print("===> --epochs_per_block ignored: model registered "
+                  "per-epoch callbacks (e.g. minibatch re-masking)")
+        else:
+            if profile_dir:
+                print("===> --profile_dir is a per-epoch-loop feature; "
+                      "ignored with --epochs_per_block")
+                profile_dir = None
+            _blocked_loop(args, block_k)
+            ran_blocked = True
+
+    if not ran_blocked:
+        args.current_epoch = 0
+    while not ran_blocked and args.current_epoch < args.epochs:
         args.current_epoch += 1
         if profile_dir and args.current_epoch == 3:
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -169,6 +186,70 @@ def main(argv=None):
         import IPython
 
         IPython.embed()
+    return args
+
+
+def _blocked_loop(args, k):
+    """Training in blocks of ``k`` epochs (``--epochs_per_block``).
+
+    Each block is one call of ``train_block``, which returns the block's
+    stacked per-epoch stats in one readback; the epoch protocol is replayed
+    on the host from them: the stat lines, best-val bookkeeping (the best
+    state itself is selected on the device) and sliding-mean early
+    stopping. The last block shrinks so that no block runs past
+    ``--epochs``. With ``--timing``, a block's seconds (it ends in its
+    readback) over its epochs give the epoch time of each block after the
+    first, which also builds and warms up.
+    """
+    from .models._runtime import update_best_val_stats
+
+    stats_printer = args.objects["statsPrinter"]
+    early_stopping = args.objects["early_stopping"]
+    es_metric = args.objects.get("es_metric", "val_loss")
+    timing = bool(getattr(args, "_timing", False))
+    block_times = []  # (epochs, seconds) of each block
+
+    t0 = time.perf_counter()
+    args.current_epoch = 0
+    stopped = False
+    while args.current_epoch < args.epochs and not stopped:
+        k_eff = min(k, args.epochs - args.current_epoch)
+        t_block = time.perf_counter()
+        stack = args.objects["train_block"](
+            k_eff, args.current_epoch + 1, **args.objects["tensors"])
+        block_times.append((k_eff, time.perf_counter() - t_block))
+        for i in range(k_eff):
+            args.current_epoch += 1
+            epoch_stats = {key: v[i] for key, v in stack.items()}
+            epoch_stats["monitor"] = dict()
+            args.objects["epoch_stats"] = epoch_stats
+            stats_printer(args.current_epoch, epoch_stats)
+            update_best_val_stats(args, epoch_stats, args.current_epoch)
+            if early_stopping(epoch_stats[es_metric]):
+                print("Early stopping...")
+                args.epochs = args.current_epoch
+                stopped = True
+                break
+
+    wall = time.perf_counter() - t0
+    print(f"===> Blocked training: {args.current_epoch} epochs in "
+          f"{wall:.2f}s ({1e3 * wall / max(args.current_epoch, 1):.2f} "
+          "ms/epoch with the first block)")
+    args.objects["block_times"] = block_times
+    if timing and len(block_times) > 1:
+        # an epoch's seconds in each block of the first block's size; the
+        # first is dropped by steady_epoch_ms
+        k0 = block_times[0][0]
+        per_epoch = [t / ke for ke, t in block_times if ke == k0]
+        if len(per_epoch) > 1:
+            mean_ms, median_ms = steady_epoch_ms(per_epoch)
+            print(f"===> Timing (blocked): {mean_ms:.2f} ms/epoch over "
+                  f"{len(per_epoch) - 1} block(s) of {k0} after the first "
+                  f"(median {median_ms:.2f}; first block "
+                  f"{block_times[0][1]:.2f} s)")
+    while len(args.objects["post_train_callbacks"]) > 0:
+        func = args.objects["post_train_callbacks"].popleft()
+        func(args)
     return args
 
 

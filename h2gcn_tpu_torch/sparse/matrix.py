@@ -111,6 +111,15 @@ class SparseMatrix:
     # the fused-attention payload of backend "attn" (AttnCoo or GatherAttn)
     attn: Optional[object] = None
 
+    def todense(self) -> torch.Tensor:
+        """The matrix as a dense tensor on its device (duplicates summed)."""
+        if self.dense is not None:
+            return self.dense
+        out = torch.zeros(self.shape, dtype=self.vals.dtype,
+                          device=self.vals.device)
+        return out.index_put_((self.rows.long(), self.cols.long()), self.vals,
+                              accumulate=True)
+
     def to_scipy(self):
         import scipy.sparse as sp
 

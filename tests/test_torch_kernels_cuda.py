@@ -1007,3 +1007,83 @@ def test_row_normalized_backward_matches_the_plain_path(cuda, backend):
     torch.cuda.synchronize()
     assert _COUNTERS[backend].launches >= before + 2
     _close(x.grad, xr.grad)
+
+
+# ----------------------------------------------- the runtime's entry points
+RUN_TOL = 1e-4  # trained runs through the kernels: chip_smoke.py's gate
+
+@pytest.fixture(scope="module")
+def small_planetoid(tmp_path_factory):
+    import chip_smoke
+
+    path = str(tmp_path_factory.mktemp("planetoid"))
+    chip_smoke.write_planetoid(path, "small",
+                               chip_smoke.build_graph(n=900, m_edges=3000,
+                                                      seed=5),
+                               seed=5, n_feat=200, feats_per_row=8,
+                               n_test=200)
+    return path
+
+
+def _cli(data_dir, tmp_path, tag, *extra):
+    from h2gcn_tpu_torch import run_experiments
+
+    model, *extra = extra
+    return run_experiments.main([
+        model, "planetoid", "--dataset", "ind.small", "--dataset_path",
+        data_dir, "--val_size", "300", "--random_seed", "123",
+        "--checkpoint_dir", str(tmp_path / tag), *extra])
+
+
+def test_blocked_epochs_match_per_epoch_on_the_card(cuda, small_planetoid,
+                                                    tmp_path):
+    """H2GCN-2 through gscatter: ``--epochs_per_block 4`` against the
+    per-epoch run, every epoch's stats and the best state within the
+    kernel gate (gscatter's atomics add in a varying order)."""
+    import chip_smoke
+
+    common = ("H2GCN", "--sparse_backend", "gscatter", "--epochs", "10",
+              "--dropout", "0", "--best_val_criteria", "val_loss")
+    runs = []
+    for extra in ((), ("--epochs_per_block", "4")):
+        with chip_smoke.RecordedEpochs() as rec:
+            args = _cli(small_planetoid, tmp_path, str(len(runs)), *common,
+                        *extra)
+        runs.append((rec.epochs, args))
+    (ea, a), (eb, b) = runs
+    assert [e for e, _ in ea] == [e for e, _ in eb] == list(range(1, 11))
+    for (_, sa), (_, sb) in zip(ea, eb):
+        for key, value in sa.items():
+            assert abs(sb[key] - value) <= RUN_TOL * max(1.0, abs(value))
+    assert (a.objects["best_val_stats"]["epoch"]
+            == b.objects["best_val_stats"]["epoch"])
+    pa, pb = (r.objects["best_state"]["params"] for r in (a, b))
+    for key, ref in pa.items():
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((pb[key] - ref).abs().max()) <= RUN_TOL * scale, key
+    assert [k for k, _ in b.objects["block_times"]] == [4, 4, 2]
+
+
+def test_attn_step_through_the_gather_payload(cuda, small_planetoid,
+                                              tmp_path):
+    """The gather payload's coefficients (its call launches the weighted
+    combine): each destination's sum to 1, as the segment path's, which
+    they match."""
+    args = _cli(small_planetoid, tmp_path, "gat", "GAT", "--epochs", "1",
+                "--fused_attention", "--attn_impl", "gather")
+    tensors, model = args.objects["tensors"], args.objects["model"]
+    ga = tensors["adj"].attn
+    assert isinstance(ga, tgat_.GatherAttn)
+    before = tgat_.gscatter_weighted.launches
+    coefs = args.objects["attn_step"](**tensors)
+    torch.cuda.synchronize()
+    assert tgat_.gscatter_weighted.launches >= before + 2
+    model.fused_attention = False
+    ref = args.objects["attn_step"](**tensors)
+    nnz = tensors["adj"].nnz
+    assert torch.equal(tensors["adj"].rows[:nnz].long(), ga.rows)
+    for got, want in zip(coefs, ref):
+        sums = torch.zeros(ga.n, got.shape[0], device=cuda).index_add_(
+            0, ga.rows, got.T)
+        assert float((sums - 1).abs().max()) <= GAT_TOL
+        _close(got, want[:, :nnz].contiguous(), GAT_TOL)
