@@ -139,7 +139,23 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    a synthetic GeomGCN dataset at squirrel's published size and on the
    10K graph as a SparseGraph npz, both written here from a seed (logits
    against the segment path, epoch time, ``prep_s``, peak memory);
-14. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+14. (``experiments``) drives ``python -m h2gcn_tpu_torch.experiments``
+   (its ``main``) at the published syn-products config, cut to two of its
+   graphs (h = 0.0 and 0.9, 10,000 nodes each) and split index 0, in a
+   project under ``chiprun_out/experiments``: ``init`` and ``generate``
+   (the graphs have 10,000 nodes and their homoEdgeRatio orders as h; the
+   seconds of each operation a graph), a ``sweep`` of
+   ``configs/syn-products/h2gcn.json`` with ``-p 2 --epochs 5
+   --extra_args=--timing`` that spawns 8 children on the card (each
+   succeeded, wrote finite accuracies and launched gscatter; a line each
+   with its seconds from start to exit beside its epoch ms), a second
+   sweep that spawns none, ``summarize`` (8 rows), one extra child with
+   ``--sparse_backend cootile --precompute_workers 4`` (launched cootile),
+   the stored logits of the h = 0.9 H2GCN-2 child against an in-process
+   run of its argv and that run's segment path, and the exact-hop split
+   at 4 host workers against 1 on the h = 0.9 graph and the 250K graph
+   (entry for entry; the seconds of each, the halo rows and bytes);
+15. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 
@@ -2040,6 +2056,297 @@ def check_paths(data_dir, device):
                  ("--setting", "gcn", "--split_seed", "15"), device)
 
 
+# --------------------------------------------------------------------------
+# Phase 14 (experiments): the experiments pipeline at syn-products' config
+# --------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the two graphs of the published syn-products config the phase sweeps
+# (graph_index 1), with its split index 0
+EXP_H = (0.0, 0.9)
+# the setup whose child is run again in-process (H2GCN-2 with dropout)
+EXP_SETUP = "M64-R-T1-G-V-T2-G-V-C1-C2-D0.5-MO"
+# the extra child: the same setup through #3 with the sharded precompute
+EXP_EXTRA = ("H2GCN --network_setup " + EXP_SETUP + " --adj_nhood 1 2 "
+             "--sparse_backend cootile --precompute_workers 4")
+
+
+class _Timed:
+    """Records the seconds of each call of the named functions of
+    ``module`` (looked up at call time, so a caller inside the module
+    calls the wrapper) as ``(name, statepoint graphName, seconds)``."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.calls = module, names, []
+
+    def __enter__(self):
+        self._orig = {n: getattr(self.module, n) for n in self.names}
+        for name, fn in self._orig.items():
+            def timed(job, *a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(job, *a, **kw)
+                self.calls.append((_name, job.sp.get("graphName"),
+                                   time.perf_counter() - t0))
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.module, name, fn)
+
+
+def experiments_config():
+    """``configs/syn-products/generation.json`` cut to the graphs at EXP_H
+    (``graph_index`` 1) and split index 0: 10,000 nodes, 10 classes of
+    1,000, m = 3, m0 = 30, ``naive_npz`` features, split 0.25p__0.5p."""
+    with open(os.path.join(REPO, "configs", "syn-products",
+                           "generation.json")) as f:
+        conf = json.load(f)
+    conf["graphs"] = [g for g in conf["graphs"]
+                      if g["h"] in EXP_H and g["graph_index"] == 1]
+    conf["splits"] = [s for s in conf["splits"] if s["split_index"] == 0]
+    return conf
+
+
+def _exp_state(root, config):
+    """Every (graph job, model args, run job) of ``config``'s runs in the
+    project, and the bytes of the splits' child logs."""
+    from pathlib import Path
+
+    from h2gcn_tpu_torch.experiments import workflow
+    from h2gcn_tpu_torch.modules.runstore import get_project
+
+    runs, log_bytes = [], 0
+    for graph_job in get_project(root):
+        if not workflow._graph_matches(graph_job,
+                                       config.get("graph_filter_dict")):
+            continue
+        for split_job, fg_name, _, args, run_id in workflow.iter_runs(
+                graph_job, config):
+            ws = Path(split_job.workspace()) / workflow.WORKSPACE_ROOT
+            log = ws / "terminal_output.log"
+            log_bytes += log.stat().st_size if log.exists() else 0
+            if ws.exists():
+                runs += [(graph_job, split_job, fg_name, args, run_id, job)
+                         for job in get_project(str(ws)).find_jobs(
+                             {"run_id": run_id})]
+    return runs, log_bytes
+
+
+def _exp_children(tag, runs, kernel):
+    """Gate and print each child of a sweep: it succeeded, wrote finite
+    accuracies, and launched ``kernel``; its seconds from start to exit
+    against its epoch ms (``--timing``)."""
+    lines = []
+    for graph_job, _, _, args, _, job in runs:
+        path = job.fn("results.json")
+        if not (job.doc.get("succeeded") and os.path.exists(path)):
+            raise AssertionError(f"{tag}: {args} on h={graph_job.sp.h} "
+                                 "did not succeed")
+        with open(path) as f:
+            results = json.load(f)
+        accs = [float(results[k]) for k in ("train_acc", "val_acc",
+                                            "test_accuracy")]
+        if not all(np.isfinite(accs)):
+            raise AssertionError(f"{tag}: {args}: accuracies {accs}")
+        timing = job.doc["timing"]
+        if timing["launches"].get(kernel, 0) == 0:
+            raise AssertionError(f"{tag}: {args} on h={graph_job.sp.h} "
+                                 f"never launched {kernel}: "
+                                 f"{timing['launches']}")
+        line = {"experiments": tag, "h": graph_job.sp.h,
+                "setup": args.split()[2], "wall_s": job.doc["wall_s"],
+                # before main: the interpreter's start and the imports
+                "startup_s": job.doc["wall_s"] - timing["main_s"],
+                "main_s": timing["main_s"], "prep_s": timing["prep_s"],
+                "epoch_ms": timing["epoch_ms"],
+                "epoch_ms_median": timing["epoch_ms_median"],
+                "first_epoch_ms": timing["first_epoch_ms"],
+                "epochs_s": 1e-3 * (timing["first_epoch_ms"] + (
+                    timing["epochs"] - 1) * timing["epoch_ms"]),
+                "launches": timing["launches"],
+                "train_acc": accs[0], "val_acc": accs[1],
+                "test_accuracy": accs[2]}
+        emit(line)
+        lines.append(line)
+    return lines
+
+
+def exp_split_check(name, adj):
+    """The exact-hop split [I, A1, A2] over 4 host workers (threads, the
+    path of ``--precompute_workers 4``) against one worker, entry for
+    entry; the seconds of each and the halo volumes."""
+    from h2gcn_tpu_torch.parallel.spgemm import dist_nhood_split
+    from h2gcn_tpu_torch.sparse import transforms
+
+    t0 = time.perf_counter()
+    one = transforms.nhood_split(adj, 2)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four, stats = dist_nhood_split(adj, 2, n_workers=4, return_stats=True)
+    four_s = time.perf_counter() - t0
+    if len(four) != len(one):
+        raise AssertionError(f"split {name}: {len(four)} hops, not "
+                             f"{len(one)}")
+    for hop, (a, b) in enumerate(zip(one, four)):
+        a, b = a.tocsr().sorted_indices(), b.tocsr().sorted_indices()
+        if not (np.array_equal(a.indptr, b.indptr)
+                and np.array_equal(a.indices, b.indices)
+                and np.array_equal(a.data, b.data)):
+            raise AssertionError(f"split {name}: hop {hop} differs at 4 "
+                                 "workers")
+    emit({"experiments": "split", "graph": name, "n": adj.shape[0],
+          "hop_nnz": [int(m.nnz) for m in one], "workers_1_s": one_s,
+          "workers_4_s": four_s, "rounds": stats.rounds,
+          "halo_rows": stats.halo_rows, "halo_bytes": stats.halo_bytes,
+          "total_halo_bytes": stats.total_halo_bytes,
+          "shard_nnz": stats.shard_nnz})
+
+
+def check_experiments(device):
+    """Phase 14 (``experiments``): ``python -m
+    h2gcn_tpu_torch.experiments`` at the published syn-products config
+    (two of its graphs, h = 0.0 and 0.9, split index 0) on the card:
+    init and generate; a sweep of ``configs/syn-products/h2gcn.json`` (its
+    four H2GCN setups at hidden 64) with ``-p 2 --epochs 5 --extra_args
+    --timing``: 8 children through #1 (``auto``); a second sweep that
+    spawns none; summarize (8 rows); one extra child through #3 with
+    ``--precompute_workers 4``; the stored logits of the h = 0.9 EXP_SETUP
+    child against an in-process run of its argv and that run's segment
+    path; the split at 4 workers against 1 on the 10K and 250K graphs.
+    The project stays under ``chiprun_out/experiments``."""
+    import csv
+
+    import torch
+
+    from h2gcn_tpu_torch.experiments import generation, workflow
+    from h2gcn_tpu_torch.experiments.__main__ import main as exp_main
+    from h2gcn_tpu_torch.experiments.graphgen import adj_lists_to_scipy
+    from h2gcn_tpu_torch.modules.runstore import get_project
+
+    base = os.path.join(REPO, "chiprun_out", "experiments")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    root = os.path.join(base, "syn-products")
+    gen_cfg = os.path.join(base, "generation.json")
+    with open(gen_cfg, "w") as f:
+        json.dump(experiments_config(), f)
+    sweep_cfg = os.path.join(REPO, "configs", "syn-products", "h2gcn.json")
+    config = workflow.load_config(sweep_cfg)
+
+    # step 1: the graphs, their statistics, the features and the split
+    t0 = time.perf_counter()
+    exp_main(["init", root, "-c", gen_cfg])
+    ops = ("generate_graph", "calculate_statistics", "generate_feature",
+           "generate_split")
+    with _Timed(generation, ops) as timed:
+        exp_main(["generate", root])
+    graphs = sorted(get_project(root), key=lambda j: j.sp.h)
+    if [j.sp.h for j in graphs] != list(EXP_H):
+        raise AssertionError(f"experiments: graphs at {[j.sp.h for j in graphs]}")
+    for job in graphs:
+        if job.doc["numNodes"] != 10_000 or not generation.split_generated(job):
+            raise AssertionError(f"experiments: {job.sp.graphName} has "
+                                 f"{job.doc['numNodes']} nodes or no split")
+    ratios = [job.doc["homoEdgeRatio"] for job in graphs]
+    if not ratios[1] > ratios[0]:
+        raise AssertionError(f"experiments: homoEdgeRatio {ratios} does "
+                             f"not order as h {EXP_H}")
+    emit({"experiments": "generate", "graphs": [
+        {"graph": j.sp.graphName, "h": j.sp.h, "numEdges": j.doc["numEdges"],
+         "homoEdgeRatio": j.doc["homoEdgeRatio"],
+         "seconds": {op: sum(s for o, g, s in timed.calls
+                             if o == op and g == j.sp.graphName)
+                     for op in ops}} for j in graphs],
+        "s": time.perf_counter() - t0})
+
+    # step 2: the sweep, 8 children on the card through #1
+    t0 = time.perf_counter()
+    exp_main(["sweep", root, "-c", sweep_cfg, "-p", "2", "--epochs",
+              str(EPOCHS), "--extra_args=--timing"])
+    runs, log_bytes = _exp_state(root, config)
+    sweep_s = time.perf_counter() - t0
+    if len(runs) != 2 * len(config["model_args"]):
+        raise AssertionError(f"experiments: the sweep spawned {len(runs)} "
+                             "children, not 8")
+    children = _exp_children("sweep_child", runs, "gscatter_spmm")
+    emit({"experiments": "sweep", "graphs": len(graphs),
+          "children": len(runs),
+          "children_wall_s": sum(c["wall_s"] for c in children),
+          "children_epochs_s": sum(c["epochs_s"] for c in children),
+          "s": sweep_s})
+
+    # step 3: a second sweep finds every run done and spawns nothing (a
+    # child would add a run or, run again, append to its split's log)
+    t0 = time.perf_counter()
+    exp_main(["sweep", root, "-c", sweep_cfg, "-p", "2", "--epochs",
+              str(EPOCHS), "--extra_args=--timing"])
+    again, again_bytes = _exp_state(root, config)
+    spawned = len(again) - len(runs)
+    if spawned or again_bytes != log_bytes:
+        raise AssertionError("experiments: the second sweep spawned a child")
+    emit({"experiments": "resweep", "children": spawned,
+          "s": time.perf_counter() - t0})
+
+    # step 4: summarize
+    t0 = time.perf_counter()
+    out_csv = os.path.join(base, "results.csv")
+    exp_main(["summarize", root, "-f", sweep_cfg, "-o", out_csv])
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(runs):
+        raise AssertionError(f"experiments: summarize wrote {len(rows)} "
+                             f"rows, not {len(runs)}")
+    emit({"experiments": "summarize", "rows": len(rows),
+          "columns": list(rows[0]), "s": time.perf_counter() - t0})
+
+    # step 5: the extra child, through #3 with the sharded precompute
+    t0 = time.perf_counter()
+    extra = {"model_args": [EXP_EXTRA], "graph_filter_dict": {"h": EXP_H[1]}}
+    extra_cfg = os.path.join(base, "extra.json")
+    with open(extra_cfg, "w") as f:
+        json.dump(extra, f)
+    exp_main(["sweep", root, "-c", extra_cfg, "--epochs", str(EPOCHS),
+              "--extra_args=--timing"])
+    extra_runs, _ = _exp_state(root, extra)
+    if len(extra_runs) != 1:
+        raise AssertionError(f"experiments: {len(extra_runs)} extra runs")
+    _exp_children("extra_child", extra_runs, "cootile_spmm")
+    emit({"experiments": "extra", "children": 1,
+          "s": time.perf_counter() - t0})
+
+    # step 6: the h = 0.9 EXP_SETUP child's stored logits against the same
+    # argv run in-process (its own store) and that run's segment path
+    t0 = time.perf_counter()
+    (_, split_job, fg_name, args_str, run_id, job), = [
+        r for r in runs if r[0].sp.h == EXP_H[1] and EXP_SETUP in r[3]]
+    argv = workflow.dataset_args(args_str, split_job, fg_name, run_id)
+    argv[argv.index("--signac_root") + 1] = os.path.join(base, "in_process")
+    argv += ["--epochs", str(EPOCHS), "--timing"]
+    args, launches, _, secs = _cli(argv, device)
+    if launches["gscatter_spmm"] == 0:
+        raise AssertionError("experiments in-process: gscatter_spmm never "
+                             "launched")
+    stored = torch.as_tensor(job.data["predicted_prob"], device=device)
+    logits, ref = _segment_logits(args, device)
+    run_err, run_tol = _gate("experiments in-process", "stored logits",
+                             stored, logits)
+    seg_err, seg_tol = _gate("experiments segment", "stored logits",
+                             stored, ref)
+    emit({"experiments": "logits", "h": EXP_H[1], "setup": EXP_SETUP,
+          "in_process_err": run_err, "segment_err": seg_err,
+          "tol": max(run_tol, seg_tol), "in_process_s": secs,
+          "launches": launches, "s": time.perf_counter() - t0})
+
+    # step 7: the split at 4 workers against 1, at 10K and 250K nodes
+    t0 = time.perf_counter()
+    adj_lists, _, _ = generation.load_graph_artifacts(graphs[1])
+    exp_split_check(graphs[1].sp.graphName, adj_lists_to_scipy(adj_lists))
+    exp_split_check("syn250k", scale_graph())
+    emit({"experiments": "splits", "s": time.perf_counter() - t0})
+
+
 # One turn of the A/B comparison, run by ``python3 -c`` from the root of a
 # tree (this one, or another commit's unpacked beside it): the COO-chunk
 # kernels at the 10K graph's layer 1, "highest" (CUDA-event means of 20
@@ -2262,6 +2569,10 @@ def main() -> int:
         t0 = time.perf_counter()
         check_paths(data_dir, device)
         emit({"phase": "paths", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        check_experiments(device)
+        emit({"phase": "experiments", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

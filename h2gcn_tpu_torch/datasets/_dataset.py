@@ -183,6 +183,7 @@ class GraphData:
         norm_type: NType = NType.SYM_NORMALIZED,
         backend: str = "auto",
         sparse_features: bool = False,
+        precompute_workers: int = 1,
         reorder: str | None = None,
         device="cpu",
     ) -> Namespace:
@@ -195,7 +196,9 @@ class GraphData:
         Chebyshev supports T_0..T_kmax (eigenvalue 2) instead.
         ``get_adj_hops`` sums the groups without normalization and exports
         them as one dense ``[n, G, n]`` tensor (refused past the dense
-        guard). ``supports``: scipy matrices exported as they are, one
+        guard). ``precompute_workers > 1`` runs the exact-hop split over
+        that many host workers (:mod:`h2gcn_tpu_torch.parallel.spgemm`; the
+        same matrices). ``supports``: scipy matrices exported as they are, one
         SparseMatrix each, as ``adj_hops`` (GCN's sym_norm(A+I), the
         Chebyshev supports, ...). ``sparse_features`` exports X as a
         ``segment`` SparseMatrix (the dense first layer then runs X W
@@ -219,7 +222,8 @@ class GraphData:
         def padded_split(kmax):
             # nhood_split stops when reachability saturates; the missing
             # exact-hop levels are empty matrices
-            splits = transforms.nhood_split(self.sparse_adj, kmax)
+            splits = transforms.nhood_split(self.sparse_adj, kmax,
+                                            n_workers=precompute_workers)
             n = self.num_samples
             while len(splits) < kmax + 1:
                 splits.append(sp.csr_matrix((n, n), dtype=splits[0].dtype))

@@ -52,7 +52,7 @@ def add_subparser_args(parser):
                             "SpMM core); needed for large feature matrices")
     group.add_argument("--precompute_workers", type=int, default=1,
                        help="Row-shard the exact-hop precompute over N "
-                            "workers (not ported yet: must be 1)")
+                            "host workers")
     group.add_argument("--reorder", choices=["none", "rcm", "cluster"],
                        default="none",
                        help="Tile-clustering node permutation applied to "
@@ -83,9 +83,6 @@ def preprocessing_data(args, normalized_hops=True):
     the exact-hop adjacency tensors on the run's device: normalized sparse
     hop matrices, or for a setup without graph layers the unnormalized
     dense hop stack."""
-    if args.precompute_workers != 1:
-        raise NotImplementedError(
-            "--precompute_workers > 1 is not ported yet (ROADMAP A9)")
     dataset = args.objects["dataset"]
     if not args.no_feature_normalize:
         dataset.row_normalize_features()
@@ -96,6 +93,7 @@ def preprocessing_data(args, normalized_hops=True):
         **hops,
         norm_type=NType[args.adj_norm_type], backend=args.sparse_backend,
         sparse_features=args.sparse_features,
+        precompute_workers=args.precompute_workers,
         reorder=None if args.reorder == "none" else args.reorder,
         device=torch.device(args._device),
     )

@@ -131,9 +131,15 @@ def _as_csr_idx(m: sp.csr_matrix):
     return indptr, indices
 
 
-def bool_spgemm(a: sp.csr_matrix, b: sp.csr_matrix) -> sp.csr_matrix:
-    """Boolean sparse x sparse product ``1[(A @ B) > 0]``, data all ones,
-    on the OpenMP runtime's default team."""
+def bool_spgemm(a: sp.csr_matrix, b: sp.csr_matrix,
+                num_threads: int = 0) -> sp.csr_matrix:
+    """Boolean sparse x sparse product ``1[(A @ B) > 0]``, data all ones.
+
+    ``num_threads`` caps the kernel's OpenMP team (0: the runtime's
+    default): the thread transport of the sharded precompute
+    (:mod:`h2gcn_tpu_torch.parallel.spgemm`) gives each of its P concurrent
+    workers ``ncpu // P`` lanes. The ctypes calls release the GIL, so P
+    Python threads run these products in parallel."""
     lib = _load()
     if lib is None:
         c = (a @ b)
@@ -147,12 +153,13 @@ def bool_spgemm(a: sp.csr_matrix, b: sp.csr_matrix) -> sp.csr_matrix:
     b_ip, b_ix = _as_csr_idx(b.tocsr())
     counts = np.zeros(n, dtype=np.int64)
     lib.bool_spgemm_count_nt(n, m, _p64(a_ip), _p32(a_ix), _p64(b_ip),
-                             _p32(b_ix), _p64(counts), 0)
+                             _p32(b_ix), _p64(counts), num_threads)
     c_indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=c_indptr[1:])
     c_indices = np.empty(c_indptr[-1], dtype=np.int32)
     lib.bool_spgemm_fill_nt(n, m, _p64(a_ip), _p32(a_ix), _p64(b_ip),
-                            _p32(b_ix), _p64(c_indptr), _p32(c_indices), 0)
+                            _p32(b_ix), _p64(c_indptr), _p32(c_indices),
+                            num_threads)
     data = np.ones(c_indptr[-1], dtype=np.float32)
     return sp.csr_matrix((data, c_indices, c_indptr), shape=(n, m))
 

@@ -13,6 +13,7 @@ present; the CPU runs only when asked for with ``--device cpu``.
 
 from __future__ import annotations
 
+import json
 import statistics
 import time
 
@@ -51,7 +52,25 @@ def steady_epoch_ms(times):
     return 1e3 * statistics.fmean(steady), 1e3 * statistics.median(steady)
 
 
+def kernel_launches() -> dict:
+    """Launches of each CUDA kernel wrapper in this process so far (each
+    wrapper counts where it launches its kernel), leaving out the kernels
+    that launched none: ``{}`` for a run on the CPU."""
+    from .sparse import attention, attention_coo, attention_gather
+    from .sparse.bsr_spmm import bsr_spmm
+    from .sparse.cootile import cootile_spmm
+    from .sparse.gscatter import gscatter_spmm
+
+    wrappers = (gscatter_spmm, bsr_spmm, cootile_spmm,
+                attention.gat_fwd_stats, attention.gat_bwd_row,
+                attention.gat_bwd_col, attention_coo.coo_fwd_stats,
+                attention_coo.coo_bwd_row, attention_coo.coo_bwd_col,
+                attention_gather.gscatter_weighted)
+    return {fn.__name__: fn.launches for fn in wrappers if fn.launches}
+
+
 def main(argv=None):
+    t_main = time.perf_counter()
     parser = arguments.create_parser()
     parser.add_argument("--random_seed", type=int, default=123)
     parser.add_argument("--interactive", "-i", action="store_true",
@@ -70,7 +89,9 @@ def main(argv=None):
                         dest="_profile_dir",
                         help="Write a torch.profiler trace of epochs 3-5 here")
     parser.add_argument("--timing", action="store_true", dest="_timing",
-                        help="Record per-epoch wall time and edges/s")
+                        help="Record per-epoch wall time and edges/s, and "
+                             "print the kernels' launches (with "
+                             "--use_signac also into the job's doc)")
     parser.add_argument("--epochs_per_block", type=int, default=1,
                         dest="_epochs_per_block",
                         help="Run K train and eval epochs per block with "
@@ -176,12 +197,27 @@ def main(argv=None):
         # the run ended before epoch 5 (short run or early stop)
         _stop_profiler(profiler, profile_dir, device)
 
-    if timing and args.objects.get("epoch_times"):
-        mean_ms, median_ms = steady_epoch_ms(args.objects["epoch_times"])
-        print(f"===> Timing: {len(args.objects['epoch_times'])} epochs, "
-              f"{mean_ms:.2f} ms/epoch after the first "
-              f"(median {median_ms:.2f}; first epoch "
-              f"{1e3 * args.objects['epoch_times'][0]:.1f} ms)")
+    if timing:
+        # main_s: the run from main's entry on (a child's seconds before
+        # it are the interpreter's start and the imports); prep_s: the
+        # host set-up of the tensors (split, reorder, payload tables)
+        prep = args.objects["tensors"].get("prep_seconds") or {}
+        record = {"launches": kernel_launches(),
+                  "main_s": time.perf_counter() - t_main,
+                  "prep_s": sum(prep.values())}
+        if args.objects.get("epoch_times"):
+            times = args.objects["epoch_times"]
+            mean_ms, median_ms = steady_epoch_ms(times)
+            print(f"===> Timing: {len(times)} epochs, "
+                  f"{mean_ms:.2f} ms/epoch after the first "
+                  f"(median {median_ms:.2f}; first epoch "
+                  f"{1e3 * times[0]:.1f} ms)")
+            record.update(epochs=len(times), epoch_ms=mean_ms,
+                          epoch_ms_median=median_ms,
+                          first_epoch_ms=1e3 * times[0])
+        print(f"===> Kernel launches: {json.dumps(record['launches'])}")
+        if args.use_signac:
+            args.objects["signac_job"].doc["timing"] = record
     if getattr(args, "_interactive", False):
         import IPython
 

@@ -61,19 +61,26 @@ def remove_eye(adj: sp.spmatrix) -> sp.csr_matrix:
 
 
 def nhood_split(adj: sp.spmatrix, nhood: int,
-                use_native: bool = True) -> List[sp.spmatrix]:
+                use_native: bool = True,
+                n_workers: int = 1) -> List[sp.spmatrix]:
     """Exact-hop reachability split ``[I, A1, A2, ...]``.
 
     ``A_k[i,j] = 1`` iff the shortest path between i and j (allowing the
     self loop added each round) is exactly k. Stops early when the reachable
     set stops growing. With the native library (:mod:`h2gcn_tpu_torch.native`)
-    the boolean spgemm runs in its OpenMP C++ path, else in scipy. The JAX
-    package's multi-worker path is not ported (ROADMAP A9).
+    the boolean spgemm runs in its OpenMP C++ path, else in scipy.
+    ``n_workers > 1`` runs the row-sharded precompute over that many host
+    workers instead (:func:`h2gcn_tpu_torch.parallel.spgemm.dist_nhood_split`),
+    with the same result.
     """
     if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
         raise ValueError(f"nhood_split needs a square matrix, got {adj.shape}")
     if isinstance(nhood, float) and np.isnan(nhood):
         return [sp.csr_matrix(np.ones(adj.shape))]
+    if n_workers > 1:
+        from ..parallel.spgemm import dist_nhood_split
+
+        return dist_nhood_split(adj, nhood, n_workers=n_workers)
     if use_native:
         from .. import native
 

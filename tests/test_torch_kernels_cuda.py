@@ -1087,3 +1087,49 @@ def test_attn_step_through_the_gather_payload(cuda, small_planetoid,
             0, ga.rows, got.T)
         assert float((sums - 1).abs().max()) <= GAT_TOL
         _close(got, want[:, :nnz].contiguous(), GAT_TOL)
+
+
+# ------------------------------------------------- the experiments pipeline
+def test_sweep_child_runs_on_the_card(cuda, tmp_path):
+    """``run_model`` with the default device spawns a child that trains on
+    the card: its ``--timing`` record in the run store counts gscatter
+    launches (``auto``'s route on CUDA)."""
+    from pathlib import Path
+
+    from h2gcn_tpu_torch.experiments import generation, workflow
+    from h2gcn_tpu_torch.modules.runstore import get_project
+
+    conf = {"graphs": [{"method": "mixhop", "numNode": 120, "numClass": 3,
+                        "classRatio": [40, 40, 40], "m": 2, "m0": 6,
+                        "h": 0.5, "graphName": "mixhop-n120-h0.5-c3"}],
+            "features": [{"feature_type": "naive_npz", "var_factor": "all"}],
+            "splits": [{"split_config": "0.25p__0.5p", "split_index": 0}]}
+    project = generation.run_pipeline(str(tmp_path / "p"), conf,
+                                      verbose=False)
+    job = next(iter(project))
+    cfg = {"model_args": ["H2GCN --network_setup M16-R-T1-G-V-C1-MO "
+                          "--adj_nhood 1 2 --hidden 16"]}
+    assert workflow.run_model(job, cfg, epochs=3,
+                              extra_args=["--timing"])[0][1] == 0
+    (split_job, _, _, _, run_id), = workflow.iter_runs(job, cfg)
+    ws = Path(split_job.workspace()) / workflow.WORKSPACE_ROOT
+    (run,) = get_project(str(ws)).find_jobs({"run_id": run_id})
+    assert run.doc["succeeded"]
+    assert run.doc["timing"]["launches"].get("gscatter_spmm", 0) > 0
+
+
+def test_precompute_workers_match_one_on_the_card(cuda, small_planetoid,
+                                                  tmp_path):
+    """``--precompute_workers 2`` (the sharded host split) trains to the
+    logits of one worker, within the kernel gate (gscatter's atomics)."""
+    logits = []
+    for workers in ("1", "2"):
+        args = _cli(small_planetoid, tmp_path, workers, "H2GCN",
+                    "--epochs", "3", "--precompute_workers", workers)
+        with torch.no_grad():
+            logits.append(args.objects["predict_step"](
+                **args.objects["tensors"]))
+    one, two = logits
+    assert torch.isfinite(one).all()
+    scale = max(1.0, float(one.abs().max()))
+    assert float((two - one).abs().max()) <= RUN_TOL * scale
