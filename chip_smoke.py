@@ -155,7 +155,23 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    run of its argv and that run's segment path, and the exact-hop split
    at 4 host workers against 1 on the h = 0.9 graph and the 250K graph
    (entry for entry; the seconds of each, the halo rows and bytes);
-15. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+15. (``distributed``) the distributed layer (``h2gcn_tpu_torch.parallel``)
+   on the card: B3 through every shard of the 10K graph's A1 and A2 cut
+   into 4 halo-cootile shards at F = 64 and 128 (each shard's interior
+   and halo reduce, forward and transpose, against the plain version,
+   with the receive buffers built from the send tables; the shards' A x
+   against scipy; a ``dist_spmm`` line a shard with its halo, bytes,
+   entries, chunks and device time in a CUDA graph), and #10's four
+   combines on every shard of the self-looped 10K support cut into 4
+   dest-stripe GAT shards at Cora's layer 1 (``dist_gat`` lines); then,
+   in a world of one rank over NCCL, the dry run in its five modes and
+   H2GCN-2 for 5 epochs through the CLI in each ``--halo_mode`` and GAT
+   at Cora's widths (``--attn_drop 0``), each against the one-device run
+   on the same route (logits at TOL; launches, epoch ms), and a trace of
+   epochs 3-5 of the world-of-one halo-cootile run and of its one-device
+   run (``dist_profile``); last, ``--mesh_shards`` one past the card
+   count fails before it spawns (``dist_one_card``);
+16. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Every phase line carries its seconds (``"s"``). Any failure raises.
 
@@ -171,6 +187,7 @@ summarized by ``trace_summary``) of each epoch in each tree.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -2430,6 +2447,333 @@ finally:
 """
 
 
+# --------------------------------------------------------------------------
+# Phase 15 (distributed): the distributed layer on the card
+# --------------------------------------------------------------------------
+
+DIST_SHARDS = 4  # the shards of the per-shard holds
+DIST_MODES = ("ring", "allgather", "halo", "halo-cootile")
+
+
+def _receive_buffers(send_idx, xs):
+    """Each shard's receive buffer, built from the send tables without a
+    collective: row ``s*H + i`` is shard ``s``'s row ``send_idx[s, d, i]``."""
+    import torch
+
+    D = len(xs)
+    idx = torch.from_numpy(send_idx.astype(np.int64)).to(xs[0].device)
+    return [torch.cat([xs[s][idx[s, d]] for s in range(D)]) for d in range(D)]
+
+
+def dist_spmm_holds(mats, device):
+    """B3 through every shard of the D = 4 halo-cootile partition of the
+    10K graph's A1 and A2 at F = 64 and 128: each shard's interior and halo
+    reduce, forward and Aᵀg, against the plain version, and the shards'
+    outputs put together against scipy's A x. A line a shard with its
+    halo, its bytes, its matrices' entries and chunks and the device time
+    of its two reduces in a CUDA graph."""
+    import torch
+
+    from h2gcn_tpu_torch.parallel import dist as pdist
+    from h2gcn_tpu_torch.parallel.mesh import Mesh
+    from h2gcn_tpu_torch.sparse import spmm
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm, cootile_spmm_plain
+
+    D = DIST_SHARDS
+    gen = torch.Generator(device=device).manual_seed(5)
+    for mname, mat in mats.items():
+        t0 = time.perf_counter()
+        hcm, n_pad = pdist.shard_matrix_halo_cootile(mat, D)
+        shards = [hcm.local(Mesh(rank=d, size=D, device=device))
+                  for d in range(D)]
+        n, n_local, h_pad = mat.shape[0], hcm.n_local, hcm.halo
+        emit({"dist_shards": mname, "D": D, "n_local": n_local,
+              "h_pad": h_pad, "build_s": time.perf_counter() - t0})
+        for F in (64, 128):
+            t0 = time.perf_counter()
+            x = torch.zeros(n_pad, F, device=device)
+            x[:n] = torch.randn(n, F, generator=gen, device=device)
+            g = torch.randn(n_pad, F, generator=gen, device=device)
+            xs, gs = list(x.split(n_local)), list(g.split(n_local))
+            recvs = _receive_buffers(hcm.send_idx, xs)
+            outs = []
+            for d, sh in enumerate(shards):
+                errs = {}
+                for part, sm, xin in (("interior", sh.interior, xs[d]),
+                                      ("halo", sh.halo_mat, recvs[d])):
+                    what = f"halo-cootile {mname} F={F} shard {d} {part}"
+                    errs[part] = _gate(what, "outputs",
+                                       cootile_spmm(sm.coot, xin),
+                                       cootile_spmm_plain(sm.coot, xin))[0]
+                    t = sm.transpose_view()
+                    errs[f"{part}_t"] = _gate(
+                        f"{what} transpose", "outputs",
+                        cootile_spmm(t.coot, gs[d]),
+                        cootile_spmm_plain(t.coot, gs[d]))[0]
+
+                def local(sh=sh, d=d):
+                    return spmm(sh.interior, xs[d]) + spmm(sh.halo_mat,
+                                                           recvs[d])
+
+                outs.append(local())
+                emit({"dist_spmm": "halo-cootile", "matrix": mname, "F": F,
+                      "shard": d, "h_pad": h_pad,
+                      # the rows it receives that its edges read
+                      "halo_rows": int(np.unique(hcm.halos[d].indices).size),
+                      "recv_bytes": D * h_pad * F * 4,
+                      "interior_nnz": sh.interior.nnz,
+                      "halo_nnz": sh.halo_mat.nnz,
+                      "chunks": [sh.interior.coot.num_chunks,
+                                 sh.halo_mat.coot.num_chunks],
+                      "max_abs_err": errs,
+                      "device_ms": time_graph_ms(local)})
+            got = torch.cat(outs)[:n].cpu().numpy()
+            ref = mat @ x[:n].cpu().numpy()
+            err = float(np.abs(got - ref).max())
+            tol = TOL * max(1.0, float(np.abs(ref).max()))
+            if not err <= tol:
+                raise AssertionError(f"halo-cootile {mname} F={F}: the "
+                                     f"shards' A x differs from scipy's by "
+                                     f"{err} > {tol}")
+            emit({"dist_spmm": "halo-cootile", "matrix": mname, "F": F,
+                  "assembled_err": err, "tol": tol,
+                  "s": time.perf_counter() - t0})
+
+
+def dist_gat_holds(support, device):
+    """#10 through every shard of the D = 4 dest-stripe partition of the
+    self-looped 10K support at Cora's layer 1 (8 heads of 8): the four
+    combines of a training step on each shard's rectangular tables against
+    the plain version."""
+    import torch
+
+    from h2gcn_tpu_torch.parallel import attention as pattn
+    from h2gcn_tpu_torch.parallel.mesh import Mesh
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+
+    D, (H, F) = DIST_SHARDS, GAT_WIDTHS[0]
+    t0 = time.perf_counter()
+    dga, _ = pattn.shard_attention_gather(support, D)
+    emit({"dist_gat_shards": D, "support_nnz": support.nnz,
+          "n_local": dga.n_local, "h_pad": dga.h_pad, "n_cat": dga.n_cat,
+          "e_pad": dga.e_pad, "build_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=device).manual_seed(6)
+    for d in range(D):
+        t0 = time.perf_counter()
+        ga = dga.local(Mesh(rank=d, size=D, device=device)).attn
+        f1 = torch.randn(dga.n_local, H, generator=gen, device=device)
+        f2 = torch.randn(dga.n_cat, H, generator=gen, device=device)
+        h = torch.randn(dga.n_cat, H * F, generator=gen, device=device)
+        g = torch.randn(dga.n_local, H * F, generator=gen, device=device)
+        s_, p, live = gat._edge_terms(ga, f1, f2, 0.2)
+        q = (torch.where(s_ >= 0, 1.0, 0.2)
+             * torch.where(live, p, 0.0)).contiguous()
+        gl = torch.randn(dga.n_local, H, generator=gen, device=device)
+        ones = torch.ones(dga.n_cat, H, device=device)
+        combines = {
+            "forward": (ga.fwd, ga.slot2edge_fwd, p, gat._augx(h, ones, H, F),
+                        p),
+            "dh": (ga.bwd, ga.slot2edge_bwd, p, g, None),
+            "df1": (ga.fwd, ga.slot2edge_fwd, q, gat._augx(h, ones, H, F), q),
+            "df2": (ga.bwd, ga.slot2edge_bwd, q, gat._augx(g, gl, H, F), q),
+        }
+        line = {"dist_gat": d, "edges": int((ga.slot2edge_fwd
+                                             < dga.e_pad).sum()),
+                "work_items": [len(ga.items_fwd[0][1]),
+                               len(ga.items_bwd[0][1])]}
+        for cname, (gs, s2e, wf, x, wl) in combines.items():
+            items = ga.items_fwd if gs is ga.fwd else ga.items_bwd
+
+            def run(gs=gs, s2e=s2e, wf=wf, x=x, wl=wl, items=items):
+                return gat.gscatter_weighted(gs, s2e, wf, x, num_heads=H,
+                                             wl=wl, items=items)
+
+            err, tol = _gate(f"gscatter_weighted {cname} shard {d}",
+                             "outputs", run(),
+                             gat.gscatter_weighted_plain(gs, s2e, wf, x,
+                                                         num_heads=H, wl=wl))
+            line[f"{cname}_err"], line[f"{cname}_tol"] = err, tol
+            if cname in ("forward", "dh"):
+                line[f"{cname}_device_ms"] = time_graph_ms(run)
+        emit(dict(line, s=time.perf_counter() - t0))
+
+
+def _dist_counters():
+    from h2gcn_tpu_torch.sparse import attention_gather as gat
+    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
+    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
+
+    return {"cootile_spmm": cootile_spmm, "gscatter_spmm": gscatter_spmm,
+            "gscatter_weighted": gat.gscatter_weighted}
+
+
+def _dist_run(tag, argv, device):
+    """One CLI run for the phase: (its logits, its line)."""
+    import torch
+
+    from h2gcn_tpu_torch import run_experiments
+
+    args, launches, peak, secs = _cli(argv, device, _dist_counters())
+    stats = args.objects["epoch_stats"]
+    _finite(tag, stats)
+    with torch.no_grad():
+        logits = args.objects["predict_step"](**args.objects["tensors"])
+    mean_ms, median_ms = run_experiments.steady_epoch_ms(
+        args.objects["epoch_times"])
+    return logits, {"launches": launches, "epoch_ms": mean_ms,
+                    "epoch_ms_median": median_ms, "peak_mem_bytes": peak,
+                    "final_val_acc": float(stats["val_acc"]), "s": secs}
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """Inside, the CLI's runs register the distributed runtime at world
+    size 1 on the joined group: ``initialize_model`` draws the parameters
+    and calls ``_initialize_distributed(..., mesh_shards=1)``, as it does
+    itself for ``--mesh_shards N`` > 1 (the CLI's gate)."""
+    from h2gcn_tpu_torch.models import _runtime
+
+    one_device = _runtime.initialize_model
+
+    def initialize_model(args, model, optimizer_name, lr, early_stopping,
+                         seed=None, es_metric="val_loss"):
+        optimizer, device, seed = _runtime.init_parameters(
+            args, model, optimizer_name, lr, seed)
+        _runtime._initialize_distributed(args, model, optimizer, device,
+                                         seed, early_stopping, es_metric,
+                                         mesh_shards=1)
+
+    _runtime.initialize_model = initialize_model
+    try:
+        yield
+    finally:
+        _runtime.initialize_model = one_device
+
+
+def dist_runtime(data_dir, name, device):
+    """The distributed runtime on this card at world size 1 over NCCL (a
+    ``file://`` rendezvous): the dry run in its five modes; H2GCN-2 for
+    EPOCHS epochs in each halo mode through the CLI (in
+    :func:`world_of_one`) against the one-device run on the same route
+    (segment for the flat-COO modes, cootile for halo-cootile), and GAT at
+    Cora's widths (``--attn_drop 0``) against the one-device gather run.
+    The logits are gated at TOL; returns the distributed runs'
+    launches."""
+    import torch.distributed as tdist
+
+    from h2gcn_tpu_torch.parallel import dryrun
+    from h2gcn_tpu_torch.parallel.mesh import init_group
+
+    rendezvous = tempfile.mkdtemp(prefix="rendezvous_", dir=data_dir)
+    mesh = init_group(f"file://{os.path.join(rendezvous, 'store')}", 1, 0,
+                      device.type)
+    emit({"dist_world": mesh.size, "backend": mesh.backend,
+          "device": str(mesh.device)})
+    launches = {}
+    try:
+        for mode in DIST_MODES + ("gat",):
+            t0 = time.perf_counter()
+            out = dryrun.run(1, mode=mode)
+            emit({"dist_dryrun": mode, "loss": out["loss"],
+                  "acc": out["acc"], "s": time.perf_counter() - t0})
+
+        base = ["planetoid", "--dataset", f"ind.{name}", "--dataset_path",
+                data_dir, "--device", device.type, "--epochs", str(EPOCHS),
+                "--timing", "--random_seed", "123"]
+        refs = {}
+        runs = [(mode, "H2GCN", ["--sparse_backend",
+                                 "cootile" if mode == "halo-cootile"
+                                 else "segment"], mode)
+                for mode in DIST_MODES]
+        runs.append(("gat", "GAT", ["--fused_attention", "--attn_impl",
+                                    "gather", "--attn_drop", "0"], "ring"))
+        for tag, model, flags, mode in runs:
+            route = flags[1] if model == "H2GCN" else "gather"
+            if route not in refs:
+                ck = os.path.join(data_dir, f"ckpt_dist_ref_{route}")
+                refs[route] = _dist_run(
+                    f"{model} {route}", [model, *base, *flags,
+                                         "--checkpoint_dir", ck], device)
+                emit({"dist_ref": route, "model": model, **refs[route][1]})
+            ck = os.path.join(data_dir, f"ckpt_dist_{tag}")
+            with world_of_one():
+                logits, line = _dist_run(
+                    f"{model} world of one {tag}",
+                    [model, *base, *flags, "--halo_mode", mode,
+                     "--checkpoint_dir", ck], device)
+            err, tol = _gate(f"distributed {tag}", "logits", logits,
+                             refs[route][0])
+            kernel = {"halo-cootile": "cootile_spmm",
+                      "gat": "gscatter_weighted"}.get(tag)
+            if kernel and line["launches"][kernel] == 0:
+                raise AssertionError(f"distributed {tag}: {kernel} was "
+                                     "never launched")
+            emit({"dist_cli": tag, "model": model, "route": route,
+                  "logit_err": err, "logit_tol": tol, **line})
+            launches[tag] = line["launches"]
+
+        # where a world-of-one epoch's time goes beside the one-device
+        # epoch on the same kernel: a trace of epochs 3-5 of each
+        from h2gcn_tpu_torch import run_experiments, trace_summary
+
+        for tag, runtime in (("one_device", contextlib.nullcontext),
+                             ("halo-cootile", world_of_one)):
+            t0 = time.perf_counter()
+            trace = os.path.join(data_dir, f"trace_dist_{tag}")
+            with runtime():
+                run_experiments.main(
+                    ["H2GCN", *base, "--sparse_backend", "cootile",
+                     "--halo_mode", "halo-cootile", "--checkpoint_dir",
+                     os.path.join(data_dir, "ckpt_trace"),
+                     "--profile_dir", trace])
+            with open(os.path.join(trace, "trace.json")) as f:
+                summary = trace_summary.summarize(json.load(f), 3, top=8)
+            emit({"dist_profile": tag, **summary,
+                  "s": time.perf_counter() - t0})
+    finally:
+        tdist.destroy_process_group()
+    return launches
+
+
+def dist_one_card(data_dir, name):
+    """``--mesh_shards`` one past the card count with ``--device cuda``
+    fails before it spawns a rank."""
+    import torch
+
+    n = torch.cuda.device_count() + 1
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "h2gcn_tpu_torch.run_experiments", "H2GCN",
+         "planetoid", "--dataset", f"ind.{name}", "--dataset_path", data_dir,
+         "--mesh_shards", str(n), "--device", "cuda"],
+        capture_output=True, text=True, timeout=300)
+    want = f"requested {n} devices, have {n - 1}"
+    if proc.returncode == 0 or want not in proc.stderr:
+        raise AssertionError(f"--mesh_shards {n}: exit {proc.returncode}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    emit({"dist_one_card": n, "exit": proc.returncode, "message": want,
+          "s": time.perf_counter() - t0})
+
+
+def check_distributed(data_dir, device):
+    """Phase 15: the per-shard holds of B3 and #10 at D = 4, the
+    distributed runtime at world size 1 over NCCL, and the one-card
+    contract of ``--mesh_shards``. Returns the runtime's launches."""
+    from h2gcn_tpu_torch.sparse import transforms
+
+    t0 = time.perf_counter()
+    adj = build_graph()
+    split = transforms.nhood_split(adj, 2)
+    mats = {"A1": transforms.normalize(split[1]).tocsr(),
+            "A2": transforms.normalize(split[2]).tocsr()}
+    dist_spmm_holds(mats, device)
+    dist_gat_holds(self_looped(adj), device)
+    emit({"phase": "distributed_kernels", "s": time.perf_counter() - t0})
+    launches = dist_runtime(data_dir, "syn10k", device)
+    dist_one_card(data_dir, "syn10k")
+    return launches
+
+
 def ab_main(parent: str) -> int:
     """``python3 chip_smoke.py --ab DIR``: the attention kernels, the Cora
     BSR GAT epoch and the ``--attn_impl coo`` GAT epoch at 10K in this tree
@@ -2573,6 +2917,10 @@ def main() -> int:
         t0 = time.perf_counter()
         check_experiments(device)
         emit({"phase": "experiments", "s": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        check_distributed(data_dir, device)
+        emit({"phase": "distributed", "s": time.perf_counter() - t0})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 

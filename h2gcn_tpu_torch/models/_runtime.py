@@ -6,26 +6,26 @@ epoch protocol: step closures in ``args.objects``, post-epoch early
 stopping, best-validation selection and checkpoints, and the post-train
 restore of the best state, ``results.json`` and the run store's saved
 activations and predictions, and the blocked (``--epochs_per_block``)
-path. The JAX package's ``_runtime`` on one device; its distributed
-(``--mesh_shards``) path is not ported yet.
+path, and the distributed runtime (``--mesh_shards``,
+:func:`_initialize_distributed`). The JAX package's ``_runtime``.
 
 PyTorch updates parameters in place, so the best state is a copy
-(:func:`snapshot`) where the JAX package kept a reference to an immutable
+(:func:`~h2gcn_tpu_torch.nn.blocked.snapshot`) where the JAX package kept a reference to an immutable
 pytree.
 """
 
 from __future__ import annotations
 
-import copy
 import json
-import math
 import operator
 
 import numpy as np
 import torch
 
 from ..modules import controller, logger, monitor
+from ..nn.blocked import BLOCK_STATS, run_block, snapshot  # noqa: F401
 from ..nn.metrics import masked_accuracy, masked_softmax_cross_entropy
+from ..parallel.mesh import owns_files
 from ..sparse import SparseMatrix
 
 
@@ -191,13 +191,6 @@ def _original_order_fn(node_perm):
     return unperm
 
 
-def snapshot(model, optimizer) -> dict:
-    """A copy of the training state: ``{"params", "opt_state"}``."""
-    return {"params": {k: v.detach().clone()
-                       for k, v in model.state_dict().items()},
-            "opt_state": copy.deepcopy(optimizer.state_dict())}
-
-
 def restore(model, optimizer, state) -> None:
     model.load_state_dict(state["params"])
     optimizer.load_state_dict(state["opt_state"])
@@ -221,55 +214,27 @@ def update_best_val_stats(args, epoch_stats, epoch, ckpt=None) -> bool:
     return False
 
 
-# --------------------------------------------------------------------------
-# Blocked epochs: the best state is selected on the device.
-# --------------------------------------------------------------------------
+def init_parameters(args, model, optimizer_name, lr, seed=None):
+    """Draw the model's parameters on the run's device and build its
+    optimizer (:func:`initialize_model`'s first half, shared by both
+    runtimes). Returns ``(optimizer, device, seed)``."""
+    tensors = args.objects["tensors"]
+    adj_hops = tensors.get("adj_hops", [])
+    # a list of hop matrices, or the dense [n, G, n] stack of get_adj_hops
+    num_hops = (len(adj_hops) if isinstance(adj_hops, (list, tuple))
+                else adj_hops.shape[1]) or 1
+    seed = seed if seed is not None else getattr(args, "random_seed", 123) or 123
+    features = tensors["features"]
+    device = (features.vals if isinstance(features, SparseMatrix)
+              else features).device
 
-# the stats of one epoch of a block, in the order of the block's table
-BLOCK_STATS = ("train_loss", "train_acc", "val_acc", "test_accuracy",
-               "val_loss", "test_loss")
-
-
-def _where(better, new, old):
-    """``new`` where the 0-d device flag ``better`` holds, else ``old``,
-    for every tensor of a state tree (dicts and lists); a tensor ``old``
-    lacks (the optimizer's state before its first step) takes ``new``.
-    Other leaves (host ints, floats) come from ``new``: the caller
-    resolves them on the host once it knows which epoch won."""
-    if isinstance(new, torch.Tensor):
-        return (torch.where(better, new, old)
-                if isinstance(old, torch.Tensor) else new)
-    if isinstance(new, dict):
-        old = old if isinstance(old, dict) else {}
-        return {k: _where(better, v, old.get(k)) for k, v in new.items()}
-    if isinstance(new, (list, tuple)):
-        old = old if isinstance(old, (list, tuple)) else ()
-        return type(new)(_where(better, v, old[i] if i < len(old) else None)
-                         for i, v in enumerate(new))
-    return new
-
-
-def _host_leaves(tree):
-    """The tree with every tensor replaced by None: its structure and host
-    leaves (deep-copied), kept for each epoch of a block."""
-    if isinstance(tree, torch.Tensor):
-        return None
-    if isinstance(tree, dict):
-        return {k: _host_leaves(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_leaves(v) for v in tree)
-    return copy.deepcopy(tree)
-
-
-def _fill(skeleton, tensors):
-    """``skeleton`` (from :func:`_host_leaves`) with its tensors taken from
-    the same places of ``tensors``."""
-    if isinstance(skeleton, dict):
-        return {k: _fill(v, tensors[k]) for k, v in skeleton.items()}
-    if isinstance(skeleton, (list, tuple)):
-        return type(skeleton)(_fill(v, tensors[i])
-                              for i, v in enumerate(skeleton))
-    return tensors if skeleton is None else skeleton
+    model.init(args.objects["dataset"].feature_dim, num_hops,
+               torch.Generator().manual_seed(seed), device)
+    if isinstance(optimizer_name, str):
+        optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
+    else:
+        optimizer = optimizer_name(model.parameters())
+    return optimizer, device, seed
 
 
 def initialize_model(args, model, optimizer_name, lr, early_stopping,
@@ -284,28 +249,18 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     from a CPU generator seeded with ``seed``; dropout (and a model's
     random draws in training) from a generator on the run's device seeded
     with ``seed + 1``.
-    """
-    if (getattr(args, "_mesh_shards", 0) or 0) > 1:
-        raise NotImplementedError(
-            "--mesh_shards: the distributed runtime is not ported yet "
-            "(ROADMAP A9)")
-    tensors = args.objects["tensors"]
-    dataset = args.objects["dataset"]
-    adj_hops = tensors.get("adj_hops", [])
-    # a list of hop matrices, or the dense [n, G, n] stack of get_adj_hops
-    num_hops = (len(adj_hops) if isinstance(adj_hops, (list, tuple))
-                else adj_hops.shape[1]) or 1
-    seed = seed if seed is not None else getattr(args, "random_seed", 123) or 123
-    features = tensors["features"]
-    device = (features.vals if isinstance(features, SparseMatrix)
-              else features).device
 
-    model.init(dataset.feature_dim, num_hops,
-               torch.Generator().manual_seed(seed), device)
-    if isinstance(optimizer_name, str):
-        optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
-    else:
-        optimizer = optimizer_name(model.parameters())
+    ``--mesh_shards N`` > 1 registers the distributed runtime instead
+    (:func:`_initialize_distributed`).
+    """
+    optimizer, device, seed = init_parameters(args, model, optimizer_name,
+                                              lr, seed)
+    mesh_shards = getattr(args, "_mesh_shards", 0) or 0
+    if mesh_shards > 1:
+        _initialize_distributed(args, model, optimizer, device, seed,
+                                early_stopping, es_metric, mesh_shards)
+        return
+    tensors = args.objects["tensors"]
     drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     def train(adj, adj_hops, features, y_train, train_mask, grad_monitor):
@@ -404,54 +359,24 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
                 f"{type(model).__name__} has no attention coefficients")
         return coefs
 
-    # ---- blocked epochs (--epochs_per_block K) ---------------------------
-    # K train and eval epochs with no host sync: every stat stays a 0-d
-    # device tensor, the best state is selected on the device with
-    # torch.where (ties to the later epoch, the criterion from -inf), and
-    # the stats and each epoch's "better" flag come back in one copy at
-    # the end. The optimizer's host leaves (KerasAdam's per-tensor counts,
-    # a schedule's count) are kept for each epoch and resolved on the host
-    # after that copy. Early stopping is replayed on the host from the
-    # returned stats: when it fires mid-block, selection has seen up to
-    # K-1 more epochs than the per-epoch run (the JAX package's
-    # documented deviation).
+    # ---- blocked epochs (--epochs_per_block K): run_block ---------------
     def train_block(k, start_epoch, adj, adj_hops, features, y_train,
                     train_mask, y_val, val_mask, y_test, test_mask, **kwargs):
-        carry = args.objects.get("block_carry")
-        if carry is None:
-            carry = {"best": snapshot(model, optimizer),
-                     "best_crit": torch.full((), -math.inf, device=device)}
-        best, best_crit = carry["best"], carry["best_crit"]
-        by_acc = args.best_val_criteria == "val_acc"
-        skeletons = [_host_leaves(best["opt_state"])]
-        rows = []
-        for _ in range(k):
+        def epoch():
             train_loss = train(adj, adj_hops, features, y_train, train_mask,
                                False)
             _, stats = evaluate(adj, adj_hops, features, y_train, train_mask,
                                 y_val, val_mask, y_test, test_mask)
             stats["train_loss"] = train_loss
-            crit = stats["val_acc"] if by_acc else -stats["val_loss"]
-            better = crit >= best_crit
-            opt_state = optimizer.state_dict()
-            best = {"params": _where(better, model.state_dict(),
-                                     best["params"]),
-                    "opt_state": _where(better, opt_state,
-                                        best["opt_state"])}
-            best_crit = torch.where(better, crit, best_crit)
-            rows.append(torch.stack([stats[key].to(torch.float32)
-                                     for key in BLOCK_STATS]
-                                    + [better.to(torch.float32)]))
-            skeletons.append(_host_leaves(opt_state))
-        table = torch.stack(rows).cpu().numpy()  # the block's one readback
-        won = np.flatnonzero(table[:, -1] > 0)
-        # the winning epoch's host leaves (the block's start state if none
-        # won) around the device-selected tensors
-        best["opt_state"] = _fill(
-            skeletons[won[-1] + 1 if won.size else 0], best["opt_state"])
-        args.objects["block_carry"] = {"best": best, "best_crit": best_crit}
-        args.objects["best_state"] = best
-        return {key: table[:, i] for i, key in enumerate(BLOCK_STATS)}
+            return stats
+
+        carry, table = run_block(model, optimizer,
+                                 args.objects.get("block_carry"), k,
+                                 args.best_val_criteria == "val_acc", epoch,
+                                 device)
+        args.objects["block_carry"] = carry
+        args.objects["best_state"] = carry["best"]
+        return table
 
     args.objects["model"] = model
     args.objects["optimizer"] = optimizer
@@ -463,6 +388,141 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     args.objects["train_block"] = train_block
     # maps predict_step's logits (or any per-node array) to the original
     # node order under --reorder
+    args.objects["original_order"] = _original_order_fn(
+        tensors.get("node_perm"))
+    _register_protocol(args, model, optimizer, test_step, early_stopping,
+                       es_metric)
+
+
+# a rank's dropout seed: the single-device seed plus this stride a rank, so
+# rank 0 draws the single-device stream (the counterpart of the JAX
+# package's fold_in of the device index)
+_RANK_SEED_STRIDE = 1_000_003
+
+
+def _initialize_distributed(args, model, optimizer, device, seed,
+                            early_stopping, es_metric, mesh_shards):
+    """The distributed runtime: node-sharded tensors, edge-partitioned hops
+    and the steps of :func:`h2gcn_tpu_torch.parallel.train.build_dist_steps`
+    behind the same ``args.objects`` contract, on each rank of the joined
+    world (:mod:`h2gcn_tpu_torch.parallel.mesh`).
+
+    Hop-matrix models (the H2GCN and GCN families) shard per
+    ``--halo_mode {ring,allgather,halo,halo-cootile}``; GAT shards its
+    attention support dest-stripe-wise over the gather payload
+    (:mod:`h2gcn_tpu_torch.parallel.attention`). Every rank holds the same
+    parameters (drawn from the same seed) and computes; only rank 0 prints
+    the epoch lines and writes checkpoints, the run store and predictions.
+    Each rank's dropout draws from its own generator (seed + 1 + rank x
+    :data:`_RANK_SEED_STRIDE`).
+    """
+    from ..parallel import dist as pdist
+    from ..parallel import train as ptrain
+    from ..parallel.mesh import make_mesh, owns_files
+    from .GAT import GATNetwork
+
+    tensors = args.objects["tensors"]
+    hops = tensors.get("adj_hops")
+    mode = getattr(args, "_halo_mode", "ring") or "ring"
+    mesh = make_mesh(mesh_shards)
+    if mesh.device != device:
+        raise ValueError(f"--mesh_shards: the run's tensors are on {device}, "
+                         f"this rank's device is {mesh.device}")
+
+    if isinstance(model, GATNetwork):
+        from ..parallel import attention as pattn
+
+        dga, n_pad = pattn.shard_attention_gather(tensors["adj"].to_scipy(),
+                                                  mesh_shards)
+        model = pattn.DistGATNetwork.from_single(model)
+        hop_shards = [dga]
+        print(f"===> Distributed GAT: dest-stripe gather attention, "
+              f"halo {dga.h_pad} rows/pair, {dga.e_pad} padded edges/shard")
+    else:
+        if not (isinstance(hops, (list, tuple)) and len(hops) > 0):
+            raise ValueError("--mesh_shards requires hop-matrix models "
+                             "(H2GCN/GCN families) or GAT")
+        hop_shards, n_pad = pdist.shard_hops(
+            [h.to_scipy() for h in hops], mesh_shards, mode=mode)
+    drop_gen = torch.Generator(device=device).manual_seed(
+        seed + 1 + mesh.rank * _RANK_SEED_STRIDE)
+    train_fn, _ = ptrain.build_dist_steps(model, optimizer, mesh, hop_shards,
+                                          generator=drop_gen)
+    eval_full = train_fn.eval_full
+    rows = ptrain.node_slice(mesh, n_pad)
+
+    def put(key):
+        value = tensors[key]
+        if isinstance(value, SparseMatrix):  # sparse features
+            value = value.todense()
+        arr = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value))
+        arr = pdist.pad_nodes(arr.astype(np.float32), n_pad)[rows]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    dd = {k: put(k) for k in ("features", "y_train", "train_mask", "y_val",
+                              "val_mask", "y_test", "test_mask")}
+    args.objects["dist_data"] = dd
+    args.objects["model"] = model
+    args.objects["optimizer"] = optimizer
+    print(f"===> Distributed runtime: {mesh_shards}-way mesh, {mode} halo "
+          f"exchange, {n_pad} padded nodes, rank {mesh.rank} on {device}")
+
+    def train_step(**kwargs):
+        return dict(train_loss=train_fn(dd["features"], dd["y_train"],
+                                        dd["train_mask"]))
+
+    n_real = args.objects["dataset"].num_samples
+
+    def predict_step(**kwargs):
+        # every rank's logits, gathered on every rank (a collective: all
+        # ranks call it)
+        return train_fn.logits(dd["features"])[:n_real]
+
+    def test_step(verbose=None, save_activations=False,
+                  save_predictions=False, **kwargs):
+        stats = dict(eval_full(dd["features"], dd["y_train"],
+                               dd["train_mask"], dd["y_val"], dd["val_mask"],
+                               dd["y_test"], dd["test_mask"]))
+        stats["monitor"] = dict()
+        if args.use_signac and save_predictions:
+            logits = predict_step()
+            if owns_files():
+                job = args.objects["signac_job"]
+                unperm = _original_order_fn(tensors.get("node_perm"))
+                job.data["predicted_prob"] = _exportable(logits, unperm)
+                for scope in ("train", "val", "test"):
+                    job.data[f"{scope}_mask"] = _exportable(
+                        tensors[f"{scope}_mask"], unperm)
+        if save_activations:
+            print("===> save_activations is not supported with "
+                  "--mesh_shards; skipping (run on one device for the "
+                  "activation dump)")
+        return stats
+
+    def _unsupported(name):
+        def step(**kwargs):
+            raise NotImplementedError(
+                f"{name} is not available with --mesh_shards")
+
+        return step
+
+    def train_block(k, start_epoch, **kwargs):
+        carry, table = train_fn.block(
+            args.objects.get("block_carry"), k,
+            args.best_val_criteria == "val_acc", dd["features"],
+            dd["y_train"], dd["train_mask"], dd["y_val"], dd["val_mask"],
+            dd["y_test"], dd["test_mask"])
+        args.objects["block_carry"] = carry
+        args.objects["best_state"] = carry["best"]
+        return table
+
+    args.objects["train_step"] = train_step
+    args.objects["test_step"] = test_step
+    args.objects["train_block"] = train_block
+    args.objects["predict_step"] = predict_step
+    args.objects["embed_step"] = _unsupported("embed_step")
+    args.objects["attn_step"] = _unsupported("attn_step")
     args.objects["original_order"] = _original_order_fn(
         tensors.get("node_perm"))
     _register_protocol(args, model, optimizer, test_step, early_stopping,
@@ -483,8 +543,11 @@ def _exportable(value, unperm):
 def _register_protocol(args, model, optimizer, test_step, early_stopping,
                        es_metric):
     """Wire the epoch protocol: stats printing, early stopping, best-val
-    tracking, checkpoint management and ``results.json``."""
-    stats_printer = logger.EpochStatsPrinter()
+    tracking, checkpoint management and ``results.json``. In a joined
+    world only rank 0 prints the stats and writes files; every rank keeps
+    the best state in memory."""
+    writer = owns_files()
+    stats_printer = logger.EpochStatsPrinter(enabled=writer)
     args.objects["statsPrinter"] = stats_printer
     args.objects["best_val_stats"] = None
     args.objects["current_ckpt"] = None
@@ -504,7 +567,7 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
             print("Early stopping...")
             args.epochs = epoch
 
-        every_epoch = getattr(args, "_ckpt_every_epoch", False)
+        every_epoch = writer and getattr(args, "_ckpt_every_epoch", False)
         if every_epoch:
             current_ckpt = args.objects["current_ckpt"]
             best = args.objects["best_val_stats"]
@@ -526,7 +589,8 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
         best = args.objects["best_val_stats"]
         if (not args.verbose) or args.save_activations or args.save_predictions:
             print("Restoring the best performance model")
-            if getattr(args, "_ckpt_every_epoch", False) and best.get("ckpt"):
+            if (writer and getattr(args, "_ckpt_every_epoch", False)
+                    and best.get("ckpt")):
                 state = logger.restore_ckpt(args, best["ckpt"])
             else:
                 state = args.objects["best_state"]
@@ -537,13 +601,14 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
                 save_predictions=args.save_predictions,
             )
             best["monitor"] = epoch_stats["monitor"]
-        final_name = logger.save_ckpt(
-            snapshot(model, optimizer), args, best["epoch"], best
-        )
-        best.setdefault("ckpt", final_name)
-        print("Best performance:")
+        if writer:
+            final_name = logger.save_ckpt(
+                snapshot(model, optimizer), args, best["epoch"], best
+            )
+            best.setdefault("ckpt", final_name)
+            print("Best performance:")
         stats_printer.from_dict(best)
-        if args.use_signac:
+        if args.use_signac and writer:
             record = {key: (item.item() if isinstance(
                 item, (torch.Tensor, np.ndarray, np.generic)) else item)
                 for key, item in best.items()}

@@ -34,18 +34,24 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
     args.objects = dict(function_hooks=parser.function_hooks)
 
     if args.use_signac:
+        from ..parallel.mesh import owns_files
         from . import runstore
 
-        project = runstore.get_project(root=args._signac_root)
+        # in a distributed run, rank 0 alone writes the store; the other
+        # ranks hold the same job without touching the disk
+        writer = owns_files()
+        project = runstore.get_project(root=args._signac_root, create=writer)
         args.objects["signac_project"] = project
         statepoint = {
             name: value
             for name, value in vars(args).items()
             if (not name.startswith("_")) and (name != "objects")
         }
-        job = project.open_job(statepoint).init()
+        job = project.open_job(statepoint)
         args.objects["signac_job"] = job
-        job.doc["exp_tags"] = args._exp_tags
+        if writer:
+            job.init()
+            job.doc["exp_tags"] = args._exp_tags
 
     args.objects["pretrain_callbacks"] = deque()
     args.objects["pre_epoch_callbacks"] = deque()

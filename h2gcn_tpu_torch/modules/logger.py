@@ -12,6 +12,7 @@ import tempfile
 from datetime import datetime
 from pathlib import Path
 
+from ..parallel.mesh import owns_files
 from . import checkpoint as ckpt_io
 
 
@@ -57,6 +58,8 @@ def init_checkpoint_path(args):
     args.objects["checkpoint_name"] = args.checkpoint_name.format(
         model=args.model, dataset=args.dataset
     )
+    if not owns_files():
+        return  # rank 0 of a distributed run owns the directory
     target = Path(args.objects["checkpoint_dir"])
     if target.exists():
         mv_target = tempfile.mkdtemp(prefix="checkpoints_", dir=target.parent)
@@ -89,9 +92,11 @@ def restore_ckpt(args, ckpt_name):
 
 
 class EpochStatsPrinter:
-    """Fixed-format epoch line."""
+    """Fixed-format epoch line; prints nothing when not ``enabled`` (a
+    rank other than 0 of a distributed run)."""
 
-    def __init__(self, format_str=None):
+    def __init__(self, format_str=None, enabled=True):
+        self.enabled = enabled
         self.format_str = format_str or "    ".join(
             [
                 "Epoch: {epoch:04}",
@@ -110,9 +115,13 @@ class EpochStatsPrinter:
         }
 
     def __call__(self, epoch, epoch_stats: dict):
+        if not self.enabled:
+            return
         print(self.format_str.format(epoch=epoch, **self._floats(epoch_stats)))
 
     def from_dict(self, epoch_stats: dict):
+        if not self.enabled:
+            return
         print(self.format_str.format(**self._floats(epoch_stats)))
         if "monitor" in epoch_stats:
             print(epoch_stats["monitor"])

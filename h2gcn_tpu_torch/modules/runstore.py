@@ -166,9 +166,11 @@ class _SPView:
 
 
 class Project:
-    def __init__(self, root: str):
+    def __init__(self, root: str, create: bool = True):
         self.root = str(Path(root).absolute())
         self.workspace_root = str(Path(self.root) / "workspace")
+        if not create:
+            return
         Path(self.workspace_root).mkdir(parents=True, exist_ok=True)
         cfg = Path(self.root) / "runstore.json"
         if not cfg.exists():
@@ -206,5 +208,7 @@ class Project:
 
 
 def get_project(root=None, create: bool = True) -> Project:
+    """The project at ``root`` (default: the working directory); with
+    ``create`` it makes the workspace and the project's config file."""
     root = root or os.getcwd()
-    return Project(root)
+    return Project(root, create=create)

@@ -42,6 +42,24 @@ _NAMES = {Layer.DENSE: "dense", Layer.DROPOUT: "dropout", Layer.GCN: "graph",
           Layer.STOP_GRADIENT: "stop_gradient"}
 
 
+def _aggregate(a, x):
+    """SpMM dispatch: a :class:`SparseMatrix`, or a rank's shard of a
+    distributed hop matrix (:mod:`h2gcn_tpu_torch.parallel.dist`)."""
+    if isinstance(a, SparseMatrix):
+        return spmm(a, x)
+    from ..parallel import dist
+
+    if isinstance(a, dist.DistSparseMatrix):
+        return dist.dist_spmm(a, x)
+    if isinstance(a, dist.RingShard):
+        return dist.dist_spmm_ring(a, x)
+    if isinstance(a, dist.HaloShard):
+        return dist.dist_spmm_halo(a, x)
+    if isinstance(a, dist.HaloCooTileShard):
+        return dist.dist_spmm_halo_cootile(a, x)
+    raise TypeError(f"cannot aggregate over {type(a).__name__}")
+
+
 def _safe_lambda(expr: str):
     """Evaluate a DSL lambda with ``jnp`` and ``nn`` bound to the torch
     shim (:mod:`._lambda_ns`) and no builtins, as the JAX package does
@@ -169,7 +187,8 @@ class NetworkModel(nn.Module):
                             training=training)
             elif kind == Layer.GCN:
                 hops = conf.get("hops")
-                x = torch.stack([spmm(a, x) for h, a in enumerate(adjhops)
+                x = torch.stack([_aggregate(a, x)
+                                 for h, a in enumerate(adjhops)
                                  if hops is None or h in hops], dim=-2)
             elif kind == Layer.RELU:
                 x = torch.relu(x)

@@ -9,18 +9,29 @@ closures so model and dataset plugins stay decoupled from the loop.
 
 It runs on ``--device cuda`` (the default) and raises when no GPU is
 present; the CPU runs only when asked for with ``--device cpu``.
+
+``--mesh_shards N`` (N > 1) runs the distributed runtime on N ranks, one
+a device (NCCL on the card, gloo on the CPU; ``--halo_mode`` picks the
+boundary exchange). Where the JAX package drives its N devices from one
+process, this command spawns the N ranks itself and returns rank 0's best
+epoch; under ``torchrun --nproc_per_node N`` each process is already a
+rank and runs as one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import statistics
+import sys
 import time
 
 import torch
 
 from . import datasets, models
 from .modules import arguments, checkpoint, logger, monitor
+from .parallel.mesh import owns_files
 
 
 def resolve_device(name: str) -> torch.device:
@@ -99,10 +110,34 @@ def main(argv=None):
                              "stats readback per K epochs")
     parser.add_argument("--mesh_shards", type=int, default=0,
                         dest="_mesh_shards",
-                        help="Not ported yet: must be 0 or 1")
+                        help="Shard the graph over N devices, one rank a "
+                             "device (NCCL on cuda, gloo on cpu): the "
+                             "command spawns the N ranks, unless it runs "
+                             "as a rank of a world of N already (torchrun) "
+                             "(default: one device)")
+    parser.add_argument("--halo_mode", default="ring",
+                        choices=["ring", "allgather", "halo",
+                                 "halo-cootile"],
+                        dest="_halo_mode",
+                        help="Boundary exchange with --mesh_shards: ring "
+                             "(node chunks rotate round the ranks), "
+                             "allgather, halo (one all_to_all of the "
+                             "boundary rows, overlapped with the interior "
+                             "reduce) or halo-cootile (halo with the local "
+                             "reduces on the COO-tile kernel) "
+                             "(default: %(default)s)")
 
     known_args, _ = parser.parse_known_args(argv)
     device = resolve_device(known_args._device)
+    n_ranks = known_args._mesh_shards
+    if n_ranks > 1 and not _joined_world(known_args._device):
+        # the JAX package drives N devices from one process; torch runs a
+        # process a device, so this command starts the N ranks
+        from .parallel.mesh import spawn
+
+        argv = list(sys.argv[1:] if argv is None else argv)
+        stats = spawn(_rank_main, n_ranks, device.type, argv)
+        return argparse.Namespace(objects={"best_val_stats": stats})
 
     models.add_subparsers(parser, argv)
     datasets.add_subparsers(parser, argv)
@@ -216,13 +251,37 @@ def main(argv=None):
                           epoch_ms_median=median_ms,
                           first_epoch_ms=1e3 * times[0])
         print(f"===> Kernel launches: {json.dumps(record['launches'])}")
-        if args.use_signac:
+        if args.use_signac and owns_files():
             args.objects["signac_job"].doc["timing"] = record
     if getattr(args, "_interactive", False):
         import IPython
 
         IPython.embed()
     return args
+
+
+def _joined_world(device_type: str) -> bool:
+    """True when this process is a rank of a world: one it joined, or one
+    that torchrun's environment (``WORLD_SIZE``) describes, joined here."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    if os.environ.get("WORLD_SIZE") is None:
+        return False
+    from .parallel import multihost
+
+    multihost.initialize(device_type=device_type)
+    return dist.is_initialized()
+
+
+def _rank_main(argv):
+    """One spawned rank of ``--mesh_shards N``: the run, and its best
+    epoch's stats (floats and names) for the launching command."""
+    best = main(argv).objects["best_val_stats"] or {}
+    return {k: (float(v) if hasattr(v, "item") else v)
+            for k, v in best.items()
+            if isinstance(v, (int, float, str)) or hasattr(v, "item")}
 
 
 def _blocked_loop(args, k):

@@ -240,16 +240,17 @@ def test_cli_trains_gat_fused_on_cpu(planetoid, tmp_path, capsys):
 
 def test_cli_refuses_an_unported_payload(planetoid, tmp_path):
     # every GAT and SpMM payload is ported (cootile, B3, last), and so are
-    # the Chebyshev supports (they train) and the row-sharded exact-hop
-    # split; the CLI still refuses the mesh-sharded runtime, which is not
-    # (ROADMAP A9)
+    # the Chebyshev supports (they train), the row-sharded exact-hop split
+    # and the mesh-sharded runtime (ROADMAP A9): --mesh_shards 2 spawns two
+    # gloo ranks and trains, where it was refused before
     args = run_experiments.main([
         "H2GCN", "planetoid", "--dataset", "ind.syn", "--dataset_path",
         planetoid, "--device", "cpu", "--adj_norm_type", "CHEBY",
         "--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck")])
     assert np.isfinite(float(args.objects["epoch_stats"]["train_loss"]))
-    with pytest.raises(NotImplementedError, match="mesh_shards"):
-        run_experiments.main([
-            "H2GCN", "planetoid", "--dataset", "ind.syn", "--dataset_path",
-            planetoid, "--device", "cpu", "--mesh_shards", "2",
-            "--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck2")])
+    args = run_experiments.main([
+        "H2GCN", "planetoid", "--dataset", "ind.syn", "--dataset_path",
+        planetoid, "--device", "cpu", "--mesh_shards", "2",
+        "--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck2")])
+    best = args.objects["best_val_stats"]
+    assert best["epoch"] == 1 and np.isfinite(best["train_loss"])

@@ -1133,3 +1133,135 @@ def test_precompute_workers_match_one_on_the_card(cuda, small_planetoid,
     assert torch.isfinite(one).all()
     scale = max(1.0, float(one.abs().max()))
     assert float((two - one).abs().max()) <= RUN_TOL * scale
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer's kernels: each shard's local reduces.
+# ---------------------------------------------------------------------------
+
+
+def _sym(n, nnz, seed):
+    a = _rand(n, n, nnz, seed)
+    a = ((a + a.T) > 0).astype(np.float32)
+    deg = np.asarray(a.sum(1)).ravel()
+    d = sp.diags(1.0 / np.sqrt(np.maximum(deg, 1)))
+    return sp.csr_matrix(d @ a @ d, dtype=np.float32)
+
+
+def test_halo_cootile_shard_matches_plain(cuda):
+    """One shard of a D = 4 halo-cootile partition: its interior and halo
+    reduces through B3, forward and Aᵀg, against the plain version."""
+    from h2gcn_tpu_torch.parallel import dist as pdist
+    from h2gcn_tpu_torch.parallel.mesh import Mesh
+
+    hcm, _ = pdist.shard_matrix_halo_cootile(_sym(4000, 40_000, 21), 4)
+    sh = hcm.local(Mesh(rank=1, size=4, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(hcm.n_local, 64, generator=gen, device=cuda)
+    recv = torch.randn(4 * hcm.halo, 64, generator=gen, device=cuda)
+    g = torch.randn(hcm.n_local, 64, generator=gen, device=cuda)
+    for sm, xin in ((sh.interior, x), (sh.halo_mat, recv)):
+        assert sm.backend == "cootile" and sm.nnz > 0
+        xr = xin.clone().requires_grad_(True)
+        before = tct.cootile_spmm.launches
+        y = spmm(sm, xr)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert tct.cootile_spmm.launches == before + 2
+        _close(y.detach(), tct.cootile_spmm_plain(sm.coot, xin))
+        t = sm.transpose_view()
+        _close(xr.grad, tct.cootile_spmm_plain(t.coot, g))
+
+
+def test_dist_gat_shard_matches_plain(cuda):
+    """One rectangular shard of dest-stripe GAT (D = 4): the attention
+    forward through #10 against the CPU's plain version, and the four
+    combines of a training step (forward, dh, df1, df2) against the plain
+    combine on the card. (The backward's df1 and df2 cancel terms, so
+    their end values are held through the combines that feed them.)"""
+    from h2gcn_tpu_torch.parallel import attention as pattn
+    from h2gcn_tpu_torch.parallel.mesh import Mesh
+
+    support = ((_rand(3000, 3000, 20_000, 8) + sp.eye(3000)) > 0).astype(
+        np.float32)
+    dga, _ = pattn.shard_attention_gather(support, 4)
+    ga = dga.local(Mesh(rank=2, size=4, device=cuda)).attn
+    cpu = dga.local(Mesh(rank=2, size=4, device=torch.device("cpu"))).attn
+    H, F = 8, 8
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    f1 = torch.randn(dga.n_local, H, generator=gen, device=cuda)
+    f2 = torch.randn(dga.n_cat, H, generator=gen, device=cuda)
+    h = torch.randn(dga.n_cat, H * F, generator=gen, device=cuda)
+    g = torch.randn(dga.n_local, H * F, generator=gen, device=cuda)
+    gl = torch.randn(dga.n_local, H, generator=gen, device=cuda)
+    before = tgat_.gscatter_weighted.launches
+    out = tgat_.gather_attention(ga, f1, f2, h, num_heads=H, feat=F)
+    torch.cuda.synchronize()
+    assert tgat_.gscatter_weighted.launches == before + 1
+    _close(out.cpu(), tgat_.gather_attention(
+        cpu, f1.cpu(), f2.cpu(), h.cpu(), num_heads=H, feat=F), GAT_TOL)
+    s_, p, live = tgat_._edge_terms(ga, f1, f2, 0.2)
+    q = (torch.where(s_ >= 0, 1.0, 0.2) * torch.where(live, p, 0.0)
+         ).contiguous()
+    ones = torch.ones(dga.n_cat, H, device=cuda)
+    for gs, s2e, wf, x, wl, items in (
+            (ga.fwd, ga.slot2edge_fwd, p, tgat_._augx(h, ones, H, F), p,
+             ga.items_fwd),
+            (ga.bwd, ga.slot2edge_bwd, p, g, None, ga.items_bwd),
+            (ga.fwd, ga.slot2edge_fwd, q, tgat_._augx(h, ones, H, F), q,
+             ga.items_fwd),
+            (ga.bwd, ga.slot2edge_bwd, q, tgat_._augx(g, gl, H, F), q,
+             ga.items_bwd)):
+        got = tgat_.gscatter_weighted(gs, s2e, wf, x, num_heads=H, wl=wl,
+                                      items=items)
+        _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x,
+                                                  num_heads=H, wl=wl),
+               GAT_TOL)
+
+
+def test_world_of_one_train_step_matches_single_device(cuda, tmp_path):
+    """build_dist_steps over NCCL at world size 1 (halo-cootile: B3 on
+    the card) against the one-device step through the same kernel."""
+    import torch.distributed as tdist
+
+    from h2gcn_tpu_torch.nn import NetworkModel, parse_network_setup
+    from h2gcn_tpu_torch.parallel import dist as pdist
+    from h2gcn_tpu_torch.parallel import train as ptrain
+    from h2gcn_tpu_torch.parallel.mesh import init_group
+
+    a = _sym(3000, 30_000, 9)
+    mats = [a, sp.csr_matrix(a @ a, dtype=np.float32)]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((3000, 32)).astype(np.float32))
+    y = torch.eye(5)[torch.from_numpy(rng.integers(0, 5, 3000))]
+    mask = torch.from_numpy(rng.random(3000) < 0.4)
+
+    def model():
+        m = NetworkModel(parse_network_setup(
+            "M16-R-T1-G-V-T2-G-V-C1-C2-MO", 5, _dense_units=16),
+            l2_regularize_weight=5e-4)
+        return m.init(32, 2, torch.Generator().manual_seed(0), cuda)
+
+    ref = model()
+    hops = [SparseMatrix.from_scipy(m, backend="cootile", device=cuda)
+            for m in mats]
+    loss = ref.loss(ref(hops[0], x.to(cuda), hops), y.to(cuda),
+                    mask.to(cuda))
+    loss.backward()
+    torch.optim.SGD(ref.parameters(), lr=0.5).step()
+
+    mesh = init_group(f"file://{tmp_path / 'rendezvous'}", 1, 0, "cuda")
+    try:
+        dm = model()
+        shards, _ = pdist.shard_hops(mats, 1, mode="halo-cootile")
+        train_step, _ = ptrain.build_dist_steps(
+            dm, torch.optim.SGD(dm.parameters(), lr=0.5), mesh, shards)
+        before = tct.cootile_spmm.launches
+        got = train_step(x.to(cuda), y.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+        assert tct.cootile_spmm.launches > before
+    finally:
+        tdist.destroy_process_group()
+    assert abs(float(got) - float(loss.detach())) <= 1e-4 * abs(float(loss))
+    for (name, p), q in zip(dm.named_parameters(), ref.parameters()):
+        _close(p.detach(), q.detach(), GAT_TOL)

@@ -27,7 +27,11 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for mod in ("sparse.gscatter", "sparse.bsr_spmm", "sparse.attention",
                 "sparse.attention_coo", "sparse.attention_gather",
-                "sparse.cootile", "models.GAT", "native"):
+                "sparse.cootile", "models.GAT", "native", "entry",
+                "parallel.mesh", "parallel._collectives", "parallel.dist",
+                "parallel.train", "parallel.attention", "parallel.multihost",
+                "parallel.dryrun", "parallel.spgemm",
+                "nn.blocked"):
         assert f"h2gcn_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
