@@ -738,9 +738,6 @@ def run_cli(backend, data_dir, name, device, extra=()):
 
     from h2gcn_tpu_torch import run_experiments
     from h2gcn_tpu_torch.sparse import SparseMatrix
-    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
-    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
 
     t0 = time.perf_counter()
     tag = " ".join([name, backend, *extra])
@@ -749,16 +746,13 @@ def run_cli(backend, data_dir, name, device, extra=()):
             "--dataset_path", data_dir, "--sparse_backend", backend,
             "--epochs", str(EPOCHS), "--timing", "--random_seed", "123",
             "--checkpoint_dir", ckpt_dir, *extra]
-    counters = {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
-                "cootile_spmm": cootile_spmm}
-    for counter in counters.values():
-        counter.launches = 0
+    before = _launch_counts(_SPMM_WRAPPERS)
     torch.cuda.reset_peak_memory_stats(device)
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated(device)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _launched_since(before)
     kernel = f"{backend}_spmm"
     if launches[kernel] == 0:
         raise AssertionError(f"{tag}: {kernel} was never launched")
@@ -887,9 +881,6 @@ def run_baseline_cli(label, data_dir, name, device, model_name, backend,
     import torch
 
     from h2gcn_tpu_torch import run_experiments
-    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
-    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
 
     t0 = time.perf_counter()
     route = backend or "auto"
@@ -900,19 +891,16 @@ def run_baseline_cli(label, data_dir, name, device, model_name, backend,
             "--random_seed", "123", "--checkpoint_dir", ckpt_dir, *flags]
     if backend:
         argv += ["--sparse_backend", backend]
-    counters = {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
-                "cootile_spmm": cootile_spmm}
     gc.collect()  # earlier runs' training state (reference cycles)
     torch.cuda.empty_cache()
-    for counter in counters.values():
-        counter.launches = 0
+    before = _launch_counts(_SPMM_WRAPPERS)
     torch.cuda.reset_peak_memory_stats(device)
     start_bytes = torch.cuda.memory_allocated(device)
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated(device)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _launched_since(before)
     if kernel is None and any(launches.values()):
         raise AssertionError(f"{tag}: launched {launches}, expected none")
     if kernel is not None and launches[kernel] == 0:
@@ -1492,7 +1480,6 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
     import torch
 
     from h2gcn_tpu_torch import run_experiments
-    from h2gcn_tpu_torch.sparse import attention as att
     from h2gcn_tpu_torch.sparse import attention_coo as coo
     from h2gcn_tpu_torch.sparse import attention_gather as gat
 
@@ -1505,15 +1492,11 @@ def run_gat_cli(data_dir, name, device, attn_drop, route="bsr",
             "--timing", "--random_seed", "123", "--checkpoint_dir", ckpt_dir]
     if attn_impl:
         argv += ["--attn_impl", attn_impl]
-    counters = {fn.__name__: fn for fn in (
-        att.gat_fwd_stats, att.gat_bwd_row, att.gat_bwd_col,
-        coo.coo_fwd_stats, coo.coo_bwd_row, coo.coo_bwd_col,
-        gat.gscatter_weighted)}
-    for fn in counters.values():
-        fn.launches = 0
+    before = _launch_counts(
+        [k for names in _GAT_ROUTES.values() for k in names])
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _launched_since(before)
     adj = args.objects["tensors"]["adj"]
     payload = {"bsr": adj.bsr is not None,
                "coo": isinstance(adj.attn, coo.AttnCoo),
@@ -1613,13 +1596,21 @@ class RecordedEpochs:
         self._cls.__call__ = self._orig
 
 
-def _spmm_counters():
-    from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm
-    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
+# the SpMM kernels' launch counters
+_SPMM_WRAPPERS = ("gscatter_spmm", "bsr_spmm", "cootile_spmm")
 
-    return {"gscatter_spmm": gscatter_spmm, "bsr_spmm": bsr_spmm,
-            "cootile_spmm": cootile_spmm}
+
+def _launch_counts(wrappers):
+    """Each named kernel wrapper's launches so far in this process (the
+    program's ``launches.<wrapper>`` counters)."""
+    from h2gcn_tpu_torch import tracing
+
+    return {k: tracing.counter("launches." + k) for k in wrappers}
+
+
+def _launched_since(before):
+    """The launches of each wrapper of ``before`` since it was taken."""
+    return {k: v - before[k] for k, v in _launch_counts(before).items()}
 
 
 def _cli(argv, device, counters=None):
@@ -1631,17 +1622,15 @@ def _cli(argv, device, counters=None):
 
     from h2gcn_tpu_torch import run_experiments
 
-    counters = _spmm_counters() if counters is None else counters
     gc.collect()  # earlier runs' training state (reference cycles)
     torch.cuda.empty_cache()
-    for fn in counters.values():
-        fn.launches = 0
+    before = _launch_counts(_SPMM_WRAPPERS if counters is None else counters)
     torch.cuda.reset_peak_memory_stats(device)
     start = torch.cuda.memory_allocated(device)
     t0 = time.perf_counter()
     args = run_experiments.main(argv)
     torch.cuda.synchronize()
-    return (args, {k: fn.launches for k, fn in counters.items()},
+    return (args, _launched_since(before),
             torch.cuda.max_memory_allocated(device) - start,
             time.perf_counter() - t0)
 
@@ -1907,7 +1896,7 @@ def paths_attn(data_dir, name, device):
     from h2gcn_tpu_torch.sparse import attention_gather as gat
 
     tag = f"paths attn {name}"
-    counters = {"gscatter_weighted": gat.gscatter_weighted}
+    counters = ("gscatter_weighted",)
     args, launches, peak, secs = _cli(
         ["GAT", "planetoid", "--dataset", f"ind.{name}", "--dataset_path",
          data_dir, "--fused_attention", "--epochs", "2", "--random_seed",
@@ -1919,10 +1908,10 @@ def paths_attn(data_dir, name, device):
     ga = adj.attn
     if not isinstance(ga, gat.GatherAttn):
         raise AssertionError(f"{tag}: the support took no gather payload")
-    gat.gscatter_weighted.launches = 0
+    before = _launch_counts(counters)
     coefs = args.objects["attn_step"](**tensors)
     torch.cuda.synchronize()
-    attn_launches = gat.gscatter_weighted.launches
+    attn_launches = _launched_since(before)["gscatter_weighted"]
     if attn_launches == 0:
         raise AssertionError(f"{tag}: attn_step launched no combine")
     model.fused_attention = False
@@ -2598,13 +2587,8 @@ def dist_gat_holds(support, device):
         emit(dict(line, s=time.perf_counter() - t0))
 
 
-def _dist_counters():
-    from h2gcn_tpu_torch.sparse import attention_gather as gat
-    from h2gcn_tpu_torch.sparse.cootile import cootile_spmm
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm
-
-    return {"cootile_spmm": cootile_spmm, "gscatter_spmm": gscatter_spmm,
-            "gscatter_weighted": gat.gscatter_weighted}
+# the kernels of the distributed phase's routes
+_DIST_WRAPPERS = ("cootile_spmm", "gscatter_spmm", "gscatter_weighted")
 
 
 def _dist_run(tag, argv, device):
@@ -2613,7 +2597,7 @@ def _dist_run(tag, argv, device):
 
     from h2gcn_tpu_torch import run_experiments
 
-    args, launches, peak, secs = _cli(argv, device, _dist_counters())
+    args, launches, peak, secs = _cli(argv, device, _DIST_WRAPPERS)
     stats = args.objects["epoch_stats"]
     _finite(tag, stats)
     with torch.no_grad():

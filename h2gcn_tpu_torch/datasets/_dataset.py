@@ -13,7 +13,6 @@ container (:mod:`.sparsegraph`) included.
 from __future__ import annotations
 
 import pickle as pkl
-import time
 import warnings
 from argparse import Namespace
 from itertools import chain
@@ -23,6 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import tracing
 from ..sparse import SparseMatrix, transforms
 from ..sparse.transforms import NType
 
@@ -210,11 +210,9 @@ class GraphData:
         adjacency), exported as ``t.node_perm`` (new position ``i`` holds
         old node ``perm[i]``). ``t.prep_seconds`` holds the host seconds of
         the split, the reorder and the export of the matrices (their
-        payloads' table builds).
+        payloads' table builds): the ``setup.prep.*`` spans.
         """
         device = torch.device(device)
-        prep = {}
-        t0 = time.perf_counter()
 
         def hop_groups(spec):
             return [[int(x) for x in elem.split(",")] for elem in spec]
@@ -229,92 +227,101 @@ class GraphData:
                 splits.append(sp.csr_matrix((n, n), dtype=splits[0].dtype))
             return splits
 
-        hops_unnorm = None
-        if get_adj_hops:
-            groups = hop_groups(get_adj_hops)
-            n = self.num_samples
-            if n * n * len(groups) > self._DENSE_FEATURE_GUARD:
-                raise ValueError(
-                    f"get_adj_hops would materialize a dense "
-                    f"[{n}, {len(groups)}, {n}] stack "
-                    f"({n * n * len(groups):,} elements); use the "
-                    "normalized sparse hop pipeline (get_adj_norm_hops) "
-                    "at this scale")
-            splits = padded_split(max(chain(*groups)))
-            hops_unnorm = [sum(splits[i] for i in g) for g in groups]
-        normed = None
-        if get_adj_norm_hops:
-            groups = hop_groups(get_adj_norm_hops)
-            kmax = max(chain(*groups))
-            if norm_type == NType.CHEBY:
-                splits = transforms.chebyshev_polynomials(
-                    self.sparse_adj, kmax, eigenvalue=2)
-                normed = [sum(splits[i] for i in g) for g in groups]
-            else:
-                splits = padded_split(kmax)
-                summed = [sum(splits[i] for i in g) for g in groups]
-                normed = [transforms.normalize(m, norm_type) for m in summed]
-        prep["split"] = time.perf_counter() - t0
+        split = tracing.phase("setup.prep.split")
+        with split:
+            hops_unnorm = None
+            if get_adj_hops:
+                groups = hop_groups(get_adj_hops)
+                n = self.num_samples
+                if n * n * len(groups) > self._DENSE_FEATURE_GUARD:
+                    raise ValueError(
+                        f"get_adj_hops would materialize a dense "
+                        f"[{n}, {len(groups)}, {n}] stack "
+                        f"({n * n * len(groups):,} elements); use the "
+                        "normalized sparse hop pipeline "
+                        "(get_adj_norm_hops) at this scale")
+                splits = padded_split(max(chain(*groups)))
+                hops_unnorm = [sum(splits[i] for i in g) for g in groups]
+            normed = None
+            if get_adj_norm_hops:
+                groups = hop_groups(get_adj_norm_hops)
+                kmax = max(chain(*groups))
+                if norm_type == NType.CHEBY:
+                    splits = transforms.chebyshev_polynomials(
+                        self.sparse_adj, kmax, eigenvalue=2)
+                    normed = [sum(splits[i] for i in g) for g in groups]
+                else:
+                    splits = padded_split(kmax)
+                    summed = [sum(splits[i] for i in g) for g in groups]
+                    normed = [transforms.normalize(m, norm_type)
+                              for m in summed]
 
-        t0 = time.perf_counter()
         perm = None
-        if reorder:
-            # the order is computed on what the model aggregates over
-            parts = (normed if normed is not None
-                     else list(supports) if supports is not None
-                     else hops_unnorm)
-            if parts:
-                pattern = sum((abs(sp.csr_matrix(p)) for p in parts[1:]),
-                              abs(sp.csr_matrix(parts[0])))
-            else:
-                pattern = self.sparse_adj
-            perm = transforms.cluster_order(pattern, method=reorder)
-        prep["reorder"] = time.perf_counter() - t0
+        reordered = tracing.phase("setup.prep.reorder")
+        with reordered:
+            if reorder:
+                # the order is computed on what the model aggregates over
+                parts = (normed if normed is not None
+                         else list(supports) if supports is not None
+                         else hops_unnorm)
+                if parts:
+                    pattern = sum(
+                        (abs(sp.csr_matrix(p)) for p in parts[1:]),
+                        abs(sp.csr_matrix(parts[0])))
+                else:
+                    pattern = self.sparse_adj
+                perm = transforms.cluster_order(pattern, method=reorder)
 
         def permuted(m):
             return transforms.permute_graph(m, perm) if perm is not None else m
 
-        t0 = time.perf_counter()
-        t = Namespace()
-        t.adj = SparseMatrix.from_scipy(
-            permuted(self.sparse_adj).astype(np.float32), backend=backend,
-            device=device)
-        if sparse_features:
-            feats = sp.csr_matrix(self.features)
-            if perm is not None:
-                feats = feats[perm]
-            t.features = SparseMatrix.from_scipy(
-                feats.astype(np.float32), backend="segment", device=device)
-        else:
-            n_elems = int(self.features.shape[0]) * int(self.features.shape[1])
-            if n_elems > self._DENSE_FEATURE_GUARD:
-                raise ValueError(
-                    f"densifying a {self.features.shape} feature matrix "
-                    f"({n_elems:,} elements) would exhaust device memory; "
-                    "pass sparse_features=True (CLI: --sparse_features) to "
-                    "keep X on the sparse SpMM path")
-            feats_np = np.asarray(self.features.todense(), dtype=np.float32)
-            if perm is not None:
-                feats_np = feats_np[perm]
-            t.features = torch.from_numpy(feats_np).to(device)
-        if supports is not None:
-            t.adj_hops = [
-                SparseMatrix.from_scipy(permuted(m).astype(np.float32),
-                                        backend=backend, device=device)
-                for m in supports
-            ]
-        if hops_unnorm is not None:
-            stack = np.stack([np.asarray(permuted(m).todense())
-                              for m in hops_unnorm], axis=1)
-            t.adj_hops = torch.from_numpy(stack.astype(np.float32)).to(device)
-        if normed is not None:
-            t.adj_hops = [
-                SparseMatrix.from_scipy(permuted(m).astype(np.float32),
-                                        backend=backend, device=device)
-                for m in normed
-            ]
-        prep["export"] = time.perf_counter() - t0
-        t.prep_seconds = prep
+        export = tracing.phase("setup.prep.export")
+        with export:
+            t = Namespace()
+            t.adj = SparseMatrix.from_scipy(
+                permuted(self.sparse_adj).astype(np.float32),
+                backend=backend, device=device)
+            if sparse_features:
+                feats = sp.csr_matrix(self.features)
+                if perm is not None:
+                    feats = feats[perm]
+                t.features = SparseMatrix.from_scipy(
+                    feats.astype(np.float32), backend="segment",
+                    device=device)
+            else:
+                n_elems = (int(self.features.shape[0])
+                           * int(self.features.shape[1]))
+                if n_elems > self._DENSE_FEATURE_GUARD:
+                    raise ValueError(
+                        f"densifying a {self.features.shape} feature matrix "
+                        f"({n_elems:,} elements) would exhaust device memory; "
+                        "pass sparse_features=True (CLI: --sparse_features) "
+                        "to keep X on the sparse SpMM path")
+                feats_np = np.asarray(self.features.todense(),
+                                      dtype=np.float32)
+                if perm is not None:
+                    feats_np = feats_np[perm]
+                t.features = torch.from_numpy(feats_np).to(device)
+            if supports is not None:
+                t.adj_hops = [
+                    SparseMatrix.from_scipy(permuted(m).astype(np.float32),
+                                            backend=backend, device=device)
+                    for m in supports
+                ]
+            if hops_unnorm is not None:
+                stack = np.stack([np.asarray(permuted(m).todense())
+                                  for m in hops_unnorm], axis=1)
+                t.adj_hops = torch.from_numpy(
+                    stack.astype(np.float32)).to(device)
+            if normed is not None:
+                t.adj_hops = [
+                    SparseMatrix.from_scipy(permuted(m).astype(np.float32),
+                                            backend=backend, device=device)
+                    for m in normed
+                ]
+        t.prep_seconds = {"split": split.seconds,
+                          "reorder": reordered.seconds,
+                          "export": export.seconds}
         for key, value in self._dense_data.items():
             value = np.asarray(value, dtype=np.float32)
             if perm is not None and value.shape[:1] == (self.num_samples,):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import tracing
 from ..sparse import transforms
 from ._dataset import GraphData
 
@@ -378,11 +379,12 @@ def argparse_callback(args):
     import os.path as osp
 
     path = osp.join(args._dataset_path, args.dataset + ".npz")
-    dataset = SparseGraphData(
-        path, setting=args.setting,
-        require_lcc=(args.require_lcc or args.setting == "nettack"),
-        val_size=(args.val_size if args.val_size >= 0 else None),
-        seed=args.split_seed,
-    )
+    with tracing.phase("setup.load"):
+        dataset = SparseGraphData(
+            path, setting=args.setting,
+            require_lcc=(args.require_lcc or args.setting == "nettack"),
+            val_size=(args.val_size if args.val_size >= 0 else None),
+            seed=args.split_seed,
+        )
     args.objects["dataset"] = dataset
     print(f"===> Dataset loaded: {args.dataset} (SparseGraph npz)")

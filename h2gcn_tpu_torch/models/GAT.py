@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..nn.metrics import masked_softmax_cross_entropy
 from ..nn.ops import dropout
 from ..sparse import SparseMatrix, transforms
@@ -287,8 +288,8 @@ class GATPatienceController:
         self.curr_step = 0
 
     def __call__(self, epoch_stats) -> bool:
-        vacc = float(epoch_stats["val_acc"])
-        vlss = float(epoch_stats["val_loss"])
+        vacc = tracing.readback(epoch_stats["val_acc"])
+        vlss = tracing.readback(epoch_stats["val_loss"])
         if vacc >= self.vacc_mx or vlss <= self.vlss_mn:
             self.vacc_mx = max(vacc, self.vacc_mx)
             self.vlss_mn = min(vlss, self.vlss_mn)
@@ -462,10 +463,11 @@ def argparse_callback(args):
     tensors = dataset.get_tensors(backend="segment", device=device)
     tensors.adj_hops = []
     # the attention support replaces the raw adjacency in the tensors
-    support = build_attention_support(dataset, args.nhood)
-    tensors.adj = build_gat_adjacency(support, args.fused_attention,
-                                      attn_impl=args.attn_impl,
-                                      device=device)
+    with tracing.phase("setup.payload"):
+        support = build_attention_support(dataset, args.nhood)
+        tensors.adj = build_gat_adjacency(support, args.fused_attention,
+                                          attn_impl=args.attn_impl,
+                                          device=device)
     args.objects["tensors"] = vars(tensors)
 
     model = GATNetwork(

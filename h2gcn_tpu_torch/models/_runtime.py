@@ -22,6 +22,7 @@ import operator
 import numpy as np
 import torch
 
+from .. import tracing
 from ..modules import controller, logger, monitor
 from ..nn.blocked import BLOCK_STATS, run_block, snapshot  # noqa: F401
 from ..nn.metrics import masked_accuracy, masked_softmax_cross_entropy
@@ -203,8 +204,8 @@ def update_best_val_stats(args, epoch_stats, epoch, ckpt=None) -> bool:
     op = operator.ge if args.best_val_criteria == "val_acc" else operator.le
     best = args.objects["best_val_stats"]
     if best is None or op(
-        float(epoch_stats[args.best_val_criteria]),
-        float(best[args.best_val_criteria]),
+        tracing.readback(epoch_stats[args.best_val_criteria]),
+        tracing.readback(best[args.best_val_criteria]),
     ):
         new_best = dict(epoch_stats)
         new_best["epoch"] = epoch
@@ -228,12 +229,13 @@ def init_parameters(args, model, optimizer_name, lr, seed=None):
     device = (features.vals if isinstance(features, SparseMatrix)
               else features).device
 
-    model.init(args.objects["dataset"].feature_dim, num_hops,
-               torch.Generator().manual_seed(seed), device)
-    if isinstance(optimizer_name, str):
-        optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
-    else:
-        optimizer = optimizer_name(model.parameters())
+    with tracing.phase("setup.model_init"):
+        model.init(args.objects["dataset"].feature_dim, num_hops,
+                   torch.Generator().manual_seed(seed), device)
+        if isinstance(optimizer_name, str):
+            optimizer = get_optimizer(optimizer_name, model.parameters(), lr)
+        else:
+            optimizer = optimizer_name(model.parameters())
     return optimizer, device, seed
 
 
@@ -266,21 +268,27 @@ def initialize_model(args, model, optimizer_name, lr, early_stopping,
     def train(adj, adj_hops, features, y_train, train_mask, grad_monitor):
         """One training forward, backward and optimizer step; the loss as
         a 0-d device tensor."""
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(adj, features, adj_hops, training=True,
-                       generator=drop_gen)
-        loss = model.loss(logits, y_train, train_mask)
-        # a model without trainable parameters (GCN's bp variant) has no
-        # gradient to take: JAX's is zero, so its update is none
-        if loss.requires_grad:
-            loss.backward()
-            if grad_monitor:
-                monitor.grad_monitor(model)
-            optimizer.step()
-        return loss.detach()
+        with tracing.span("step.train"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with tracing.span("step.train.forward"):
+                logits = model(adj, features, adj_hops, training=True,
+                               generator=drop_gen)
+            with tracing.span("step.train.loss"):
+                loss = model.loss(logits, y_train, train_mask)
+            # a model without trainable parameters (GCN's bp variant) has no
+            # gradient to take: JAX's is zero, so its update is none
+            if loss.requires_grad:
+                with tracing.span("step.train.backward"):
+                    loss.backward()
+                if grad_monitor:
+                    monitor.grad_monitor(model)
+                with tracing.span("step.train.optimizer"):
+                    optimizer.step()
+            return loss.detach()
 
     @torch.no_grad()
+    @tracing.traced("step.eval")
     def evaluate(adj, adj_hops, features, y_train, train_mask, y_val,
                  val_mask, y_test, test_mask):
         """The logits and the stats of an evaluation, as 0-d tensors."""
@@ -559,6 +567,7 @@ def _register_protocol(args, model, optimizer, test_step, early_stopping,
     else:
         args.objects["early_stopping"] = early_stopping
 
+    @tracing.traced("epoch.post")
     def post_epoch_callback(epoch, args):
         epoch_stats = args.objects["epoch_stats"]
         stats_printer(epoch, epoch_stats)

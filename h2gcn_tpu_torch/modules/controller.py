@@ -8,6 +8,8 @@ h2gcn/modules/controller.py:4-30 (``length=0`` disables). A copy of
 
 from collections import deque
 
+from .. import tracing
+
 
 class PatienceEarlyStopping:
     """Stop when a maximized metric has not improved for ``patience`` epochs.
@@ -31,7 +33,7 @@ class PatienceEarlyStopping:
         self.step = 0
 
     def __call__(self, value) -> bool:
-        value = float(value)
+        value = tracing.readback(value)
         if self.mode == "min":
             value = -value
         self.step += 1
@@ -58,7 +60,7 @@ class SlidingMeanEarlyStopping:
         self._mean_value = 0.0
 
     def __call__(self, value) -> bool:
-        value = float(value)
+        value = tracing.readback(value)
         if self.length > 0:
             if len(self.epoch_history) == self.length and value > self._mean_value:
                 return True

@@ -12,6 +12,7 @@ import tempfile
 from datetime import datetime
 from pathlib import Path
 
+from .. import tracing
 from ..parallel.mesh import owns_files
 from . import checkpoint as ckpt_io
 
@@ -70,7 +71,7 @@ def init_checkpoint_path(args):
 
 def save_ckpt(state, args, epoch, epoch_stats) -> str:
     """Save the training state under a metric-templated name."""
-    stats = {k: (float(v) if hasattr(v, "item") else v)
+    stats = {k: (tracing.readback(v) if hasattr(v, "item") else v)
              for k, v in epoch_stats.items()
              if not isinstance(v, dict) and k != "epoch"}
     ckpt_name = args.objects["checkpoint_name"].format(epoch=epoch, **stats)
@@ -111,7 +112,8 @@ class EpochStatsPrinter:
     @staticmethod
     def _floats(stats: dict) -> dict:
         return {
-            k: (float(v) if hasattr(v, "item") else v) for k, v in stats.items()
+            k: (tracing.readback(v) if hasattr(v, "item") else v)
+            for k, v in stats.items()
         }
 
     def __call__(self, epoch, epoch_stats: dict):

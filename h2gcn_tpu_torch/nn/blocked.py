@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
+
 def snapshot(model, optimizer) -> dict:
     """A copy of the training state: ``{"params", "opt_state"}``."""
     return {"params": {k: v.detach().clone()
@@ -101,7 +103,7 @@ def run_block(model, optimizer, carry, k, by_acc, epoch, device):
                                  for key in BLOCK_STATS]
                                 + [better.to(torch.float32)]))
         skeletons.append(_host_leaves(opt_state))
-    table = torch.stack(rows).cpu().numpy()  # the block's one readback
+    table = tracing.readback(torch.stack(rows))  # the block's one readback
     won = np.flatnonzero(table[:, -1] > 0)
     # the winning epoch's host leaves (the block's start state if none
     # won) around the device-selected tensors

@@ -29,7 +29,7 @@ import time
 
 import torch
 
-from . import datasets, models
+from . import datasets, models, tracing
 from .modules import arguments, checkpoint, logger, monitor
 from .parallel.mesh import owns_files
 
@@ -65,23 +65,16 @@ def steady_epoch_ms(times):
 
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel wrapper in this process so far (each
-    wrapper counts where it launches its kernel), leaving out the kernels
-    that launched none: ``{}`` for a run on the CPU."""
-    from .sparse import attention, attention_coo, attention_gather
-    from .sparse.bsr_spmm import bsr_spmm
-    from .sparse.cootile import cootile_spmm
-    from .sparse.gscatter import gscatter_spmm
-
-    wrappers = (gscatter_spmm, bsr_spmm, cootile_spmm,
-                attention.gat_fwd_stats, attention.gat_bwd_row,
-                attention.gat_bwd_col, attention_coo.coo_fwd_stats,
-                attention_coo.coo_bwd_row, attention_coo.coo_bwd_col,
-                attention_gather.gscatter_weighted)
-    return {fn.__name__: fn.launches for fn in wrappers if fn.launches}
+    wrapper counts where it launches its kernel, as the counter
+    ``launches.<wrapper>``), leaving out the kernels that launched none:
+    ``{}`` for a run on the CPU."""
+    return {k.split(".", 1)[1]: v
+            for k, v in tracing.counters("launches.").items() if v}
 
 
 def main(argv=None):
     t_main = time.perf_counter()
+    spans = tracing.new_store()
     parser = arguments.create_parser()
     parser.add_argument("--random_seed", type=int, default=123)
     parser.add_argument("--interactive", "-i", action="store_true",
@@ -145,6 +138,7 @@ def main(argv=None):
     monitor.add_subparser_args(parser)
 
     args = arguments.parse_args(parser, argv)
+    args.objects["spans"] = spans
 
     if getattr(args, "_restore_checkpoint", None) and "model" in args.objects:
         from .models._runtime import restore
@@ -173,73 +167,86 @@ def main(argv=None):
     profile_dir = getattr(args, "_profile_dir", None)
     profiler = None
 
-    block_k = getattr(args, "_epochs_per_block", 1) or 1
-    ran_blocked = False
-    if block_k > 1 and "train_block" in args.objects:
-        if args.objects["pre_epoch_callbacks"]:
-            print("===> --epochs_per_block ignored: model registered "
-                  "per-epoch callbacks (e.g. minibatch re-masking)")
-        else:
-            if profile_dir:
-                print("===> --profile_dir is a per-epoch-loop feature; "
-                      "ignored with --epochs_per_block")
-                profile_dir = None
-            _blocked_loop(args, block_k)
-            ran_blocked = True
+    # --timing traces the whole run, --profile_dir its profiled epochs
+    was_on = tracing.enable(timing or tracing.enabled())
+    try:
+        block_k = getattr(args, "_epochs_per_block", 1) or 1
+        ran_blocked = False
+        if block_k > 1 and "train_block" in args.objects:
+            if args.objects["pre_epoch_callbacks"]:
+                print("===> --epochs_per_block ignored: model registered "
+                      "per-epoch callbacks (e.g. minibatch re-masking)")
+            else:
+                if profile_dir:
+                    print("===> --profile_dir is a per-epoch-loop feature; "
+                          "ignored with --epochs_per_block")
+                    profile_dir = None
+                _blocked_loop(args, block_k)
+                ran_blocked = True
 
-    if not ran_blocked:
-        args.current_epoch = 0
-    while not ran_blocked and args.current_epoch < args.epochs:
-        args.current_epoch += 1
-        if profile_dir and args.current_epoch == 3:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.start()
-        t_epoch = time.perf_counter()
-        for func in args.objects["pre_epoch_callbacks"]:
-            func(args.current_epoch, args)
-        args.objects["epoch_stats"] = dict()
-        args.objects["epoch_stats"].update(
-            args.objects["train_step"](**args.objects["tensors"])
-        )
-        args.objects["epoch_stats"].update(
-            args.objects["test_step"](**args.objects["tensors"])
-        )
-        if timing:
-            # the steps return before the device finishes: wait for it
-            _sync(device)
-            dt = time.perf_counter() - t_epoch
-            args.objects["epoch_times"].append(dt)
-            args.objects["epoch_stats"]["epoch_time_s"] = dt
-            if nnz_per_epoch:
-                # 2 forward passes (train+eval) + backward = 3 aggregations
-                args.objects["epoch_stats"]["agg_edges_per_s"] = (
-                    3 * nnz_per_epoch / dt
-                )
-        if profiler is not None and args.current_epoch >= 5:
+        if not ran_blocked:
+            args.current_epoch = 0
+        while not ran_blocked and args.current_epoch < args.epochs:
+            args.current_epoch += 1
+            if profile_dir and args.current_epoch == 3:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.start()
+                profiled_was_on = tracing.enable()
+            t_epoch = time.perf_counter()
+            for func in args.objects["pre_epoch_callbacks"]:
+                func(args.current_epoch, args)
+            args.objects["epoch_stats"] = dict()
+            args.objects["epoch_stats"].update(
+                args.objects["train_step"](**args.objects["tensors"])
+            )
+            args.objects["epoch_stats"].update(
+                args.objects["test_step"](**args.objects["tensors"])
+            )
+            if timing:
+                # the steps return before the device finishes: wait for it
+                _sync(device)
+                dt = time.perf_counter() - t_epoch
+                args.objects["epoch_times"].append(dt)
+                args.objects["epoch_stats"]["epoch_time_s"] = dt
+                if nnz_per_epoch:
+                    # 2 forward passes (train+eval) + backward = 3 aggregations
+                    args.objects["epoch_stats"]["agg_edges_per_s"] = (
+                        3 * nnz_per_epoch / dt
+                    )
+            if profiler is not None and args.current_epoch >= 5:
+                _stop_profiler(profiler, profile_dir, device)
+                tracing.enable(profiled_was_on)
+                profiler = profile_dir = None
+            for func in args.objects["post_epoch_callbacks"]:
+                func(args.current_epoch, args)
+            while (args.current_epoch >= args.epochs
+                   and len(args.objects["post_train_callbacks"]) > 0):
+                func = args.objects["post_train_callbacks"].popleft()
+                func(args)
+
+        if profiler is not None:
+            # the run ended before epoch 5 (short run or early stop)
             _stop_profiler(profiler, profile_dir, device)
-            profiler = profile_dir = None
-        for func in args.objects["post_epoch_callbacks"]:
-            func(args.current_epoch, args)
-        while (args.current_epoch >= args.epochs
-               and len(args.objects["post_train_callbacks"]) > 0):
-            func = args.objects["post_train_callbacks"].popleft()
-            func(args)
-
-    if profiler is not None:
-        # the run ended before epoch 5 (short run or early stop)
-        _stop_profiler(profiler, profile_dir, device)
+    finally:
+        tracing.enable(was_on)
 
     if timing:
         # main_s: the run from main's entry on (a child's seconds before
         # it are the interpreter's start and the imports); prep_s: the
-        # host set-up of the tensors (split, reorder, payload tables)
+        # host set-up of the tensors (split, reorder, payload tables);
+        # spans: each span's count, host seconds, seconds outside its
+        # child spans and launches over the run (spans_dropped: past the
+        # store's cap); counters: this process's
         prep = args.objects["tensors"].get("prep_seconds") or {}
         record = {"launches": kernel_launches(),
                   "main_s": time.perf_counter() - t_main,
-                  "prep_s": sum(prep.values())}
+                  "prep_s": sum(prep.values()),
+                  "spans": spans.summary(),
+                  "spans_dropped": spans.dropped,
+                  "counters": tracing.counters()}
         if args.objects.get("epoch_times"):
             times = args.objects["epoch_times"]
             mean_ms, median_ms = steady_epoch_ms(times)
@@ -251,6 +258,7 @@ def main(argv=None):
                           epoch_ms_median=median_ms,
                           first_epoch_ms=1e3 * times[0])
         print(f"===> Kernel launches: {json.dumps(record['launches'])}")
+        print(f"===> Spans: {json.dumps(record['spans'])}")
         if args.use_signac and owns_files():
             args.objects["signac_job"].doc["timing"] = record
     if getattr(args, "_interactive", False):

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import tracing
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -113,8 +115,14 @@ def library():
     """Build the kernels if this source hash has no library yet; load it.
 
     Returns ``(lib, build_seconds)``; ``build_seconds`` is 0.0 when the
-    library was already built.
+    library was already built. The first call, the one that builds or
+    loads, is the ``setup.library`` span.
     """
+    with tracing.phase("setup.library"):
+        return _build_and_load()
+
+
+def _build_and_load():
     so = library_path()
     seconds = 0.0
     if not so.exists():

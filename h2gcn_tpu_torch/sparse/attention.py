@@ -341,12 +341,6 @@ def gat_bwd_col(bsr, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
     return dh, df2
 
 
-# kernel launches; chip_smoke.py reads them
-gat_fwd_stats.launches = 0
-gat_bwd_row.launches = 0
-gat_bwd_col.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # Entry points.
 # ---------------------------------------------------------------------------

@@ -416,12 +416,6 @@ def coo_bwd_col(ac: AttnCoo, f1p, f2p, hp, gp, m, l, d, *, num_heads: int,
     return dh, df2
 
 
-# kernel launches; chip_smoke.py reads them
-coo_fwd_stats.launches = 0
-coo_bwd_row.launches = 0
-coo_bwd_col.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # Entry points.
 # ---------------------------------------------------------------------------

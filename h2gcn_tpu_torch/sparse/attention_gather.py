@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 from .attention import _leaky
 from .gscatter import (_MAX_SHARED, GScatter, _operand, build_gscatter_coo,
@@ -267,11 +268,8 @@ def gscatter_weighted(gs: GScatter, slot2edge, wf, x, *, num_heads: int,
             seg.rb_lo, gs.tile, gs.e_b, gs.n_rows, f, width // 32, warps,
             stream)
         _build.check(lib, err, "gscatter_weighted")
-        gscatter_weighted.launches += 1
+        tracing.launched("gscatter_weighted")
     return out
-
-
-gscatter_weighted.launches = 0  # kernel launches; chip_smoke.py reads it
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +300,7 @@ def _augx(x, xb, num_heads: int, feat: int):
 
 class _GatherAttention(torch.autograd.Function):
     @staticmethod
+    @tracing.traced("attn.forward")
     def forward(ctx, f1, f2, h, m, ga, num_heads, feat, slope, precision):
         H, F = num_heads, feat
         _, p, _ = _edge_terms(ga, f1, f2, slope)
@@ -320,6 +319,7 @@ class _GatherAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.traced("attn.backward")
     def backward(ctx, G):
         f1, f2, h, m, l, out = ctx.saved_tensors
         ga, H, F, slope, precision = ctx.conf
@@ -385,6 +385,7 @@ def gat_attention_gather(ga: GatherAttn, f1, f2, h, *, num_heads: int,
 
 class _GatherCombine(torch.autograd.Function):
     @staticmethod
+    @tracing.traced("attn.forward")
     def forward(ctx, alpha, h, ga, num_heads, feat, precision):
         ctx.save_for_backward(alpha, h)
         ctx.conf = (ga, num_heads, feat, precision)
@@ -394,6 +395,7 @@ class _GatherCombine(torch.autograd.Function):
                                  items=ga.items_fwd)
 
     @staticmethod
+    @tracing.traced("attn.backward")
     def backward(ctx, g):
         alpha, h = ctx.saved_tensors
         ga, H, F, precision = ctx.conf

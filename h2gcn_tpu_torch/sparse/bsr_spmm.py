@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 
 _KERNEL_BLOCK = 128  # the block size csrc/bsr_spmm.cu is written for
@@ -131,8 +132,5 @@ def bsr_spmm(bsr, x: torch.Tensor, *, n_out: int,
         int(blocks.dtype == torch.bfloat16), out.data_ptr(), m, f, n_out,
         torch.cuda.current_stream(xk.device).cuda_stream)
     _build.check(lib, err, "bsr_spmm")
-    bsr_spmm.launches += 1
+    tracing.launched("bsr_spmm")
     return out
-
-
-bsr_spmm.launches = 0  # kernel launches; chip_smoke.py reads it

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 from .gscatter import _MAX_SHARED, _operand, feat_width
 
@@ -345,8 +346,5 @@ def cootile_spmm(ct: CooTile, x: torch.Tensor, *,
         ct.num_chunks, per_block, ct.tile, ct.e_b, ct.n_rows, f, w, piece,
         torch.cuda.current_stream(xk.device).cuda_stream)
     _build.check(lib, err, "cootile_spmm")
-    cootile_spmm.launches += 1
+    tracing.launched("cootile_spmm")
     return out
-
-
-cootile_spmm.launches = 0  # kernel launches; chip_smoke.py reads it

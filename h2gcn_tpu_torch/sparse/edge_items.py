@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 
 # Edges one item (one warp) walks at most, items a thread block, and what a
@@ -138,8 +139,8 @@ def launch_items(wrapper, fn: str, ptr, other, it: EdgeItems, tensors,
     their items ``it`` with ``warps`` items a block (:data:`ITEM_WARPS` by
     default) on ``tensors`` (data pointers, in the launcher's order) and a
     workspace of ``ws_floats`` a split row's piece; raises on a launch
-    error and counts the launch on ``wrapper`` (its merge launch, when a
-    row is split, is part of it)."""
+    error and counts the launch under ``launches.<wrapper name>`` (its
+    merge launch, when a row is split, is part of it)."""
     name = wrapper.__name__
     warps = ITEM_WARPS if warps is None else int(warps)
     if not 1 <= warps <= _MAX_ITEM_WARPS:
@@ -161,4 +162,4 @@ def launch_items(wrapper, fn: str, ptr, other, it: EdgeItems, tensors,
         num_heads, feat, slope, int(precision == "default"), warps,
         torch.cuda.current_stream(ref.device).cuda_stream)
     _build.check(lib, err, name)
-    wrapper.launches += 1
+    tracing.launched(name)

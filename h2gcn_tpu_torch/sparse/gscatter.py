@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 
 _KB = 8          # chunks per step (a TPU grid step; kept for table parity)
@@ -373,8 +374,5 @@ def gscatter_spmm(gs: GScatter, x: torch.Tensor, *,
             xk.data_ptr(), int(xk.dtype == torch.bfloat16), out.data_ptr(),
             seg.rb_lo, level.tile, level.e_b, level.n_rows, f, w, stream)
         _build.check(lib, err, "gscatter_spmm")
-        gscatter_spmm.launches += 1
+        tracing.launched("gscatter_spmm")
     return out
-
-
-gscatter_spmm.launches = 0  # kernel launches; chip_smoke.py reads it

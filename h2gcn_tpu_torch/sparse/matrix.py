@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .attention_coo import build_attn_coo
 from .attention_gather import build_gatherattn
 from .bsr_spmm import bsr_spmm
@@ -370,11 +371,15 @@ class _SpMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sm):
         ctx.sm = sm
-        return _spmm_impl(sm, x)
+        with tracing.span("spmm", backend=sm.backend, F=x.shape[1],
+                          direction="forward"):
+            return _spmm_impl(sm, x)
 
     @staticmethod
     def backward(ctx, g):
-        return _spmm_impl(ctx.sm.transpose_view(), g.contiguous()), None
+        with tracing.span("spmm", backend=ctx.sm.backend, F=g.shape[1],
+                          direction="backward"):
+            return _spmm_impl(ctx.sm.transpose_view(), g.contiguous()), None
 
 
 def spmm(sm: SparseMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from h2gcn_tpu.sparse.pallas_attention import (_fwd_stats_call,
                                                _pad_attn_inputs,
                                                bsr_gat_attention,
                                                gat_attention)
+from h2gcn_tpu_torch import tracing
 from h2gcn_tpu_torch.sparse import SparseMatrix
 from h2gcn_tpu_torch.sparse import attention as tatt
 from h2gcn_tpu_torch.sparse.matrix import _build_bsr as t_build_bsr
@@ -155,12 +156,11 @@ def test_gradients_match_jax_grad(case):
 def test_cpu_takes_the_plain_versions_and_other_devices_raise():
     a, B, n, H, F, (f1, f2, h, g) = _inputs("b128_h3_f8")
     tb = t_build_bsr(a, B)
-    counts = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
-              tatt.gat_bwd_col.launches)
+    names = ("gat_fwd_stats", "gat_bwd_row", "gat_bwd_col")
+    counts = tuple(tracing.counter("launches." + k) for k in names)
     xs = [torch.from_numpy(x).requires_grad_(True) for x in (f1, f2, h)]
     tatt.gat_attention(tb, *xs, num_heads=H, feat=F, n_out=n).sum().backward()
-    assert counts == (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
-                      tatt.gat_bwd_col.launches)
+    assert counts == tuple(tracing.counter("launches." + k) for k in names)
     meta = torch.empty(tb.n_row_blocks * B, H * F, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tatt.gat_fwd_stats(tb, meta, meta, meta, num_heads=H, feat=F)

@@ -21,6 +21,7 @@ import torch
 import h2gcn_tpu.sparse.pallas_attention_coo as pac
 import h2gcn_tpu.sparse.pallas_cootile as pct
 from h2gcn_tpu.sparse import transforms
+from h2gcn_tpu_torch import tracing
 from h2gcn_tpu_torch.sparse import attention_coo as tac
 from h2gcn_tpu_torch.sparse import cootile as tct
 
@@ -168,8 +169,8 @@ def test_coo_wrappers_take_the_plain_version_on_the_cpu():
     f1, f2, h, g = (tac.pad_rows(torch.from_numpy(v), n_pad)
                     for v in _inputs())
     kw = dict(num_heads=H, feat=F)
-    before = (tac.coo_fwd_stats.launches, tac.coo_bwd_row.launches,
-              tac.coo_bwd_col.launches)
+    names = ("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col")
+    before = tuple(tracing.counter("launches." + k) for k in names)
     out, m, l = tac.coo_fwd_stats(ac, f1, f2, h, **kw)
     d = tac.head_dots(g, out, H, F)
     df1 = tac.coo_bwd_row(ac, f1, f2, h, g, m, l, d, **kw)
@@ -180,8 +181,8 @@ def test_coo_wrappers_take_the_plain_version_on_the_cpu():
             + (tac.coo_bwd_row_plain(ac, f1, f2, h, g, m, l, d, **kw),)
             + tac.coo_bwd_col_plain(ac, f1, f2, h, g, m, l, d, **kw)):
         assert torch.equal(got, want)
-    assert (tac.coo_fwd_stats.launches, tac.coo_bwd_row.launches,
-            tac.coo_bwd_col.launches) == before  # no kernel ran
+    assert tuple(tracing.counter("launches." + k)
+                 for k in names) == before  # no kernel ran
     # the forward-only entry on unpadded inputs
     assert torch.equal(tac.coo_gat_attention(
         ac, f1[:N], f2[:N], h[:N], n_out=N, **kw), out[:N])

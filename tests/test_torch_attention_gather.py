@@ -29,7 +29,7 @@ import chip_smoke
 import h2gcn_tpu.models.GAT as jgat
 import h2gcn_tpu.sparse.pallas_attention_gather as pag
 from h2gcn_tpu.sparse.pallas_gscatter import F_TILE
-from h2gcn_tpu_torch import run_experiments
+from h2gcn_tpu_torch import run_experiments, tracing
 from h2gcn_tpu_torch.models import GAT as tgat
 from h2gcn_tpu_torch.nn import load_jax_gat_params
 from h2gcn_tpu_torch.sparse import attention_coo as tac
@@ -149,7 +149,8 @@ def test_weighted_combine_matches_jax(aug):
                                 wl=torch.from_numpy(wl) if aug else None)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:n, :H * fw],
                                **FWD)
-    assert tag.gscatter_weighted.launches == 0  # the CPU takes the plain one
+    # the CPU takes the plain one
+    assert tracing.counter("launches.gscatter_weighted") == 0
 
 
 @pytest.mark.parametrize("name", list(CASES))

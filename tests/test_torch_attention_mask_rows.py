@@ -26,6 +26,7 @@ from h2gcn_tpu.sparse.matrix import _build_bsr as j_build_bsr
 from h2gcn_tpu.sparse.pallas_attention import (_fwd_stats_call,
                                                _pad_attn_inputs,
                                                gat_attention)
+from h2gcn_tpu_torch import tracing
 from h2gcn_tpu_torch.sparse import attention as tatt
 from h2gcn_tpu_torch.sparse import edge_items as tei
 from h2gcn_tpu_torch.sparse.matrix import _build_bsr
@@ -320,13 +321,14 @@ def test_cpu_wrappers_take_the_plain_versions_and_build_no_lists():
     f1, f2, d = (torch.randn(n_pad, H, generator=gen) for _ in range(3))
     h, g = (torch.randn(n_pad, H * F, generator=gen) for _ in range(2))
     kw = dict(num_heads=H, feat=F)
-    before = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches)
+    before = (tracing.counter("launches.gat_fwd_stats"),
+              tracing.counter("launches.gat_bwd_row"))
     got = tatt.gat_fwd_stats(bsr, f1, f2, h, **kw)
     want = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     df1 = tatt.gat_bwd_row(bsr, f1, f2, h, g, *want[1:], d, **kw)
     assert torch.equal(df1, tatt.gat_bwd_row_plain(bsr, f1, f2, h, g,
                                                    *want[1:], d, **kw))
-    assert (tatt.gat_fwd_stats.launches,
-            tatt.gat_bwd_row.launches) == before
+    assert (tracing.counter("launches.gat_fwd_stats"),
+            tracing.counter("launches.gat_bwd_row")) == before
     assert not bsr.schedules

@@ -22,6 +22,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from h2gcn_tpu_torch import tracing
 from h2gcn_tpu_torch.models import GAT as tgat
 from h2gcn_tpu_torch.sparse import SparseMatrix, spmm
 from h2gcn_tpu_torch.sparse import attention as tatt
@@ -42,6 +43,10 @@ def cuda():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches(*wrappers):
+    return tuple(tracing.counter("launches." + w) for w in wrappers)
 
 
 def _close(got, ref, tol=TOL):
@@ -94,11 +99,11 @@ def test_gscatter_kernel_matches_plain(cuda, case, precision):
     if case in ("megahub", "hub_items"):
         assert gs.overflow
     x = torch.randn(a.shape[1], f, device=cuda)
-    before = tgs.gscatter_spmm.launches
+    before = tracing.counter("launches.gscatter_spmm")
     got = tgs.gscatter_spmm(gs, x, precision=precision)
     torch.cuda.synchronize()
     levels = (gs,) + gs.overflow
-    assert tgs.gscatter_spmm.launches - before == sum(
+    assert tracing.counter("launches.gscatter_spmm") - before == sum(
         len(lv.segments) for lv in levels)
     _close(got, tgs.gscatter_spmm_plain(gs, x, precision=precision))
     if case == "hub_items":
@@ -141,10 +146,10 @@ def test_bsr_kernel_matches_plain(cuda, case, f, precision):
         items = tbsr.work_items(sm.bsr, f, cuda)
         assert int((items[:, 2] - items[:, 1]).max()) > 1
     x = torch.randn(shape[1], f, device=cuda)
-    before = tbsr.bsr_spmm.launches
+    before = tracing.counter("launches.bsr_spmm")
     got = tbsr.bsr_spmm(sm.bsr, x, n_out=shape[0], precision=precision)
     torch.cuda.synchronize()
-    assert tbsr.bsr_spmm.launches == before + 1
+    assert tracing.counter("launches.bsr_spmm") == before + 1
     _close(got, tbsr.bsr_spmm_plain(sm.bsr, x, n_out=shape[0],
                                     precision=precision))
     if case == "hub_row":
@@ -159,12 +164,13 @@ def test_spmm_backward_reads_transpose_payload(cuda, backend):
     x = torch.randn(900, 64, device=cuda, requires_grad=True)
     xr = x.detach().clone().requires_grad_(True)
     g = torch.randn(900, 64, device=cuda)
-    counter = tgs.gscatter_spmm if backend == "gscatter" else tbsr.bsr_spmm
+    counter = ("launches.gscatter_spmm" if backend == "gscatter"
+               else "launches.bsr_spmm")
     y = spmm(sm, x)
-    before = counter.launches
+    before = tracing.counter(counter)
     y.backward(g)
     torch.cuda.synchronize()
-    assert counter.launches > before  # the backward ran the kernel
+    assert tracing.counter(counter) > before  # the backward ran the kernel
     spmm(ref, xr).backward(g)
     _close(x.grad, xr.grad)
 
@@ -224,16 +230,15 @@ def test_gat_kernels_match_plain(cuda, case):
     h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
                           n_pad) for _ in range(2))
     kw = dict(num_heads=H, feat=F)
-    launches = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
-                tatt.gat_bwd_col.launches)
+    launches = _launches("gat_fwd_stats", "gat_bwd_row", "gat_bwd_col")
     out, m, l = tatt.gat_fwd_stats(bsr, f1, f2, h, **kw)
     ref = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
     d = tatt.head_dots(g, ref[0], H, F)
     df1 = tatt.gat_bwd_row(bsr, f1, f2, h, g, *ref[1:], d, **kw)
     dh, df2 = tatt.gat_bwd_col(bsr, f1, f2, h, g, *ref[1:], d, **kw)
     torch.cuda.synchronize()
-    assert (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches,
-            tatt.gat_bwd_col.launches) == tuple(c + 1 for c in launches)
+    assert _launches("gat_fwd_stats", "gat_bwd_row", "gat_bwd_col") == tuple(
+        c + 1 for c in launches)
     for got, want in zip((out, m, l), ref):
         _close(got, want, GAT_TOL)
     _close(df1, tatt.gat_bwd_row_plain(bsr, f1, f2, h, g, *ref[1:], d, **kw),
@@ -254,14 +259,14 @@ def test_gat_attention_backward_launches_its_kernels(cuda):
     xs = [torch.randn(n, w, generator=gen, device=cuda, requires_grad=True)
           for w in (H, H, H * F)]
     gw = torch.randn(n, H * F, generator=gen, device=cuda)
-    before = tatt.gat_fwd_stats.launches
+    before = tracing.counter("launches.gat_fwd_stats")
     out = tatt.gat_attention(sm.bsr, *xs, num_heads=H, feat=F, n_out=n)
-    assert tatt.gat_fwd_stats.launches == before + 1
-    rows, cols = tatt.gat_bwd_row.launches, tatt.gat_bwd_col.launches
+    assert tracing.counter("launches.gat_fwd_stats") == before + 1
+    rows, cols = _launches("gat_bwd_row", "gat_bwd_col")
     (out * gw).sum().backward()
     torch.cuda.synchronize()
-    assert tatt.gat_bwd_row.launches == rows + 1
-    assert tatt.gat_bwd_col.launches == cols + 1
+    assert tracing.counter("launches.gat_bwd_row") == rows + 1
+    assert tracing.counter("launches.gat_bwd_col") == cols + 1
     # the same on the CPU, through the plain versions
     cpu = SparseMatrix.from_scipy(sm.to_scipy(), backend="bsr",
                                   block_size=256)
@@ -295,9 +300,9 @@ def test_gat_model_fused_matches_segment_on_the_card(cuda):
     model = tgat.GATNetwork(c, fused_attention=True, attn_drop=0.0)
     model.init(d, 1, torch.Generator().manual_seed(0), cuda)
     adj = tgat.build_gat_adjacency(support, True, device=cuda)
-    before = tatt.gat_fwd_stats.launches
+    before = tracing.counter("launches.gat_fwd_stats")
     fused = model(adj, x, [], training=False)
-    assert tatt.gat_fwd_stats.launches == before + 2
+    assert tracing.counter("launches.gat_fwd_stats") == before + 2
     model.fused_attention = False
     seg = model(adj, x, [], training=False)
     _close(fused.detach(), seg.detach(), GAT_TOL)
@@ -346,8 +351,7 @@ def test_coo_kernels_match_plain(cuda, case, precision):
         assert tcoo.edge_items(ac, "fwd").n_split > 0
     kw = dict(num_heads=H, feat=F, precision=precision)
     tol = GAT_TOL if precision == "highest" else BF16_TOL
-    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
-                tcoo.coo_bwd_col.launches)
+    launches = _launches("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col")
     out, m, l = tcoo.coo_fwd_stats(ac, f1, f2, h, **kw)
     ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
     d = tatt.head_dots(g, ref[0], H, F)
@@ -356,8 +360,8 @@ def test_coo_kernels_match_plain(cuda, case, precision):
     torch.cuda.synchronize()
     # each launches once a call over the per-row and per-column lists,
     # however many segments the tables hold
-    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
-            tcoo.coo_bwd_col.launches) == tuple(c + 1 for c in launches)
+    assert _launches("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col") == tuple(
+        c + 1 for c in launches)
     if max_chunks:
         assert len(ac.fwd) > 1 and len(ac.bwd) > 1
     _close(out, ref[0], tol)
@@ -392,14 +396,14 @@ def test_gat_attention_coo_backward_launches_its_kernels(cuda):
     xs = [torch.randn(n, w, generator=gen, device=cuda, requires_grad=True)
           for w in (H, H, H * F)]
     gw = torch.randn(n, H * F, generator=gen, device=cuda)
-    before = tcoo.coo_fwd_stats.launches
+    before = tracing.counter("launches.coo_fwd_stats")
     out = tcoo.gat_attention_coo(ac, *xs, num_heads=H, feat=F, n_out=n)
-    assert tcoo.coo_fwd_stats.launches == before + 1
-    rows, cols = tcoo.coo_bwd_row.launches, tcoo.coo_bwd_col.launches
+    assert tracing.counter("launches.coo_fwd_stats") == before + 1
+    rows, cols = _launches("coo_bwd_row", "coo_bwd_col")
     (out * gw).sum().backward()
     torch.cuda.synchronize()
-    assert tcoo.coo_bwd_row.launches == rows + 1
-    assert tcoo.coo_bwd_col.launches == cols + 1
+    assert tracing.counter("launches.coo_bwd_row") == rows + 1
+    assert tracing.counter("launches.coo_bwd_col") == cols + 1
     # the same on the CPU, through the plain versions
     cpu = tcoo.build_attn_coo(a)
     xc = [x.detach().cpu().requires_grad_(True) for x in xs]
@@ -467,8 +471,7 @@ def test_coo_work_items_match_plain(cuda, case, precision):
                           n_pad) for _ in range(2))
     kw = dict(num_heads=H, feat=F, precision=precision)
     tol = GAT_TOL if precision == "highest" else BF16_TOL
-    launches = (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
-                tcoo.coo_bwd_col.launches)
+    launches = _launches("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col")
     out, m, l = tcoo.coo_fwd_stats(ac, f1, f2, h, items=items["fwd"],
                                    warps=warps, **kw)
     ref = tcoo.coo_fwd_stats_plain(ac, f1, f2, h, **kw)
@@ -477,8 +480,8 @@ def test_coo_work_items_match_plain(cuda, case, precision):
     dh, df2 = tcoo.coo_bwd_col(*bwd, items=items["col"], warps=warps, **kw)
     df1 = tcoo.coo_bwd_row(*bwd, items=items["fwd"], warps=warps, **kw)
     torch.cuda.synchronize()
-    assert (tcoo.coo_fwd_stats.launches, tcoo.coo_bwd_row.launches,
-            tcoo.coo_bwd_col.launches) == tuple(c + 1 for c in launches)
+    assert _launches("coo_fwd_stats", "coo_bwd_row", "coo_bwd_col") == tuple(
+        c + 1 for c in launches)
     _close(out, ref[0], tol)
     for got, want in zip((m, l), ref[1:]):  # f32 statistics either way
         _close(got, want, GAT_TOL)
@@ -545,10 +548,10 @@ def test_gat_bwd_col_walks_the_masks_column_lists(cuda, case):
     kw = dict(num_heads=H, feat=F)
     out, m, l = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
     bwd = (bsr, f1, f2, h, g, m, l, tatt.head_dots(g, out, H, F))
-    before = tatt.gat_bwd_col.launches
+    before = tracing.counter("launches.gat_bwd_col")
     dh, df2 = tatt.gat_bwd_col(*bwd, **kw)
     torch.cuda.synchronize()
-    assert tatt.gat_bwd_col.launches == before + 1
+    assert tracing.counter("launches.gat_bwd_col") == before + 1
     for got, want in zip((dh, df2), tatt.gat_bwd_col_plain(*bwd, **kw)):
         _close(got, want, GAT_TOL)
     no_src = torch.from_numpy(np.diff(ptr.cpu().numpy()) == 0).to(cuda)
@@ -581,14 +584,14 @@ def test_gat_fwd_and_row_walk_the_masks_row_lists(cuda, case):
     h, g = (tatt.pad_rows(torch.randn(n, H * F, generator=gen, device=cuda),
                           n_pad) for _ in range(2))
     kw = dict(num_heads=H, feat=F)
-    launches = (tatt.gat_fwd_stats.launches, tatt.gat_bwd_row.launches)
+    launches = _launches("gat_fwd_stats", "gat_bwd_row")
     got = tatt.gat_fwd_stats(bsr, f1, f2, h, **kw)
     ref = tatt.gat_fwd_stats_plain(bsr, f1, f2, h, **kw)
     bwd = (bsr, f1, f2, h, g, *ref[1:], tatt.head_dots(g, ref[0], H, F))
     df1 = tatt.gat_bwd_row(*bwd, **kw)
     torch.cuda.synchronize()
-    assert (tatt.gat_fwd_stats.launches,
-            tatt.gat_bwd_row.launches) == tuple(c + 1 for c in launches)
+    assert _launches("gat_fwd_stats", "gat_bwd_row") == tuple(
+        c + 1 for c in launches)
     for x, want in zip(got, ref):
         _close(x, want, GAT_TOL)
     _close(df1, tatt.gat_bwd_row_plain(*bwd, **kw), GAT_TOL)
@@ -656,10 +659,11 @@ def test_gscatter_weighted_matches_plain(cuda, case, precision):
             (ga.fwd, ga.slot2edge_fwd, ga.items_fwd, ga.num_src),
             (ga.bwd, ga.slot2edge_bwd, ga.items_bwd, n)):
         x = torch.randn(x_rows, H * fw, generator=gen, device=cuda)
-        before = tgat_.gscatter_weighted.launches
+        before = tracing.counter("launches.gscatter_weighted")
         got = tgat_.gscatter_weighted(gs, s2e, wf, x, items=items, **kw)
         torch.cuda.synchronize()
-        assert tgat_.gscatter_weighted.launches == before + len(gs.segments)
+        assert (tracing.counter("launches.gscatter_weighted")
+                == before + len(gs.segments))
         _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x, **kw),
                GAT_TOL)
 
@@ -677,11 +681,12 @@ def test_gather_attention_matches_cpu(cuda, drop):
     if drop:
         m = torch.where(torch.rand(ga.num_edges, H, generator=gen,
                                    device=cuda) < 0.4, 2.5, 0.0)
-    before = tgat_.gscatter_weighted.launches
+    before = tracing.counter("launches.gscatter_weighted")
     out = tgat_.gather_attention(ga, *xs, m, num_heads=H, feat=F)
     (out * gw).sum().backward()
     torch.cuda.synchronize()
-    assert tgat_.gscatter_weighted.launches == before + 4  # fwd, dh, df1, df2
+    # fwd, dh, df1, df2
+    assert tracing.counter("launches.gscatter_weighted") == before + 4
     cpu = tgat_.build_gatherattn(a)
     xc = [x.detach().cpu().requires_grad_(True) for x in xs]
     outc = tgat_.gather_attention(cpu, *xc, None if m is None else m.cpu(),
@@ -724,11 +729,11 @@ def test_gat_model_at_scale_payloads_match_segment_on_the_card(cuda, impl):
     model.init(d, 1, torch.Generator().manual_seed(0), cuda)
     adj = tgat.build_gat_adjacency(support, True, attn_impl=impl, device=cuda)
     assert adj.backend == "attn"
-    counter = (tgat_.gscatter_weighted if impl == "gather"
-               else tcoo.coo_fwd_stats)
-    before = counter.launches
+    counter = ("launches.gscatter_weighted" if impl == "gather"
+               else "launches.coo_fwd_stats")
+    before = tracing.counter(counter)
     fused = model(adj, x, [], training=False)
-    assert counter.launches == before + 2
+    assert tracing.counter(counter) == before + 2
     model.fused_attention = False
     seg = model(adj, x, [], training=False)
     _close(fused.detach(), seg.detach(), GAT_TOL)
@@ -757,10 +762,10 @@ def test_cootile_kernel_matches_plain(cuda, case, precision):
         _, per_block, _, _ = tct.work_shape(ct, f, cuda)
         assert ct.heaviest_row_chunks() > 8 * per_block
     x = torch.randn(m, f, device=cuda)
-    before = tct.cootile_spmm.launches
+    before = tracing.counter("launches.cootile_spmm")
     got = tct.cootile_spmm(ct, x, precision=precision)
     torch.cuda.synchronize()
-    assert tct.cootile_spmm.launches == before + 1
+    assert tracing.counter("launches.cootile_spmm") == before + 1
     _close(got, tct.cootile_spmm_plain(ct, x, precision=precision))
     # the plain version is the matrix's own product (f32 in "highest")
     if precision == "highest":
@@ -777,10 +782,10 @@ def test_cootile_spmm_backward_reads_transpose_payload(cuda):
     xr = x.detach().clone().requires_grad_(True)
     g = torch.randn(900, 64, device=cuda)
     y = spmm(sm, x)
-    before = tct.cootile_spmm.launches
+    before = tracing.counter("launches.cootile_spmm")
     y.backward(g)
     torch.cuda.synchronize()
-    assert tct.cootile_spmm.launches == before + 1
+    assert tracing.counter("launches.cootile_spmm") == before + 1
     spmm(ref, xr).backward(g)
     _close(y.detach(), spmm(ref, xr.detach()))
     _close(x.grad, xr.grad)
@@ -845,11 +850,11 @@ def test_cootile_full_width_matches_plain(cuda, case, f, precision):
     gen = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn(m, f, generator=gen, device=cuda, requires_grad=True)
     g = torch.randn(n, f, generator=gen, device=cuda)
-    before = tct.cootile_spmm.launches
+    before = tracing.counter("launches.cootile_spmm")
     y = spmm(sm, x)
     y.backward(g)
     torch.cuda.synchronize()
-    assert tct.cootile_spmm.launches == before + 2
+    assert tracing.counter("launches.cootile_spmm") == before + 2
     _close(y.detach(), tct.cootile_spmm_plain(sm.coot, x.detach(),
                                               precision=precision), 1e-4)
     _close(x.grad, tct.cootile_spmm_plain(sm.coot_t, g, precision=precision),
@@ -907,11 +912,12 @@ def test_combine_work_items_match_plain(cuda, case, tile, warps, precision):
     for gs, s2e, items in ((ga.fwd, ga.slot2edge_fwd, ga.items_fwd),
                            (ga.bwd, ga.slot2edge_bwd, ga.items_bwd)):
         x = torch.randn(n, H * fw, generator=gen, device=cuda)
-        before = tgat_.gscatter_weighted.launches
+        before = tracing.counter("launches.gscatter_weighted")
         got = tgat_.gscatter_weighted(gs, s2e, wf, x, items=items,
                                       warps=warps, **kw)
         torch.cuda.synchronize()
-        assert tgat_.gscatter_weighted.launches == before + len(gs.segments)
+        assert (tracing.counter("launches.gscatter_weighted")
+                == before + len(gs.segments))
         _close(got, tgat_.gscatter_weighted_plain(gs, s2e, wf, x, **kw),
                GAT_TOL)
 
@@ -962,8 +968,8 @@ def _plain(backend, sm, x):
     return tct.cootile_spmm_plain(sm.coot, x)
 
 
-_COUNTERS = {"gscatter": tgs.gscatter_spmm, "bsr": tbsr.bsr_spmm,
-             "cootile": tct.cootile_spmm}
+_COUNTERS = {"gscatter": "launches.gscatter_spmm",
+             "bsr": "launches.bsr_spmm", "cootile": "launches.cootile_spmm"}
 
 
 @pytest.mark.parametrize("matrix", ["self_looped", "cheby_zeros"])
@@ -980,11 +986,11 @@ def test_spmm_kernels_at_the_baselines_widths(cuda, backend, f, matrix):
     gen = torch.Generator(device=cuda).manual_seed(f)
     x = torch.randn(3000, f, generator=gen, device=cuda, requires_grad=True)
     g = torch.randn(3000, f, generator=gen, device=cuda)
-    before = _COUNTERS[backend].launches
+    before = tracing.counter(_COUNTERS[backend])
     y = spmm(sm, x)
     y.backward(g)
     torch.cuda.synchronize()
-    assert _COUNTERS[backend].launches >= before + 2
+    assert tracing.counter(_COUNTERS[backend]) >= before + 2
     _close(y.detach(), _plain(backend, sm, x.detach()))
     _close(x.grad, _plain(backend, sm.transpose_view(), g))
 
@@ -1001,11 +1007,11 @@ def test_row_normalized_backward_matches_the_plain_path(cuda, backend):
     x = torch.randn(3000, 128, generator=gen, device=cuda, requires_grad=True)
     xr = x.detach().clone().requires_grad_(True)
     g = torch.randn(3000, 128, generator=gen, device=cuda)
-    before = _COUNTERS[backend].launches
+    before = tracing.counter(_COUNTERS[backend])
     spmm(sm, x).backward(g)
     spmm(ref, xr).backward(g)
     torch.cuda.synchronize()
-    assert _COUNTERS[backend].launches >= before + 2
+    assert tracing.counter(_COUNTERS[backend]) >= before + 2
     _close(x.grad, xr.grad)
 
 
@@ -1074,10 +1080,10 @@ def test_attn_step_through_the_gather_payload(cuda, small_planetoid,
     tensors, model = args.objects["tensors"], args.objects["model"]
     ga = tensors["adj"].attn
     assert isinstance(ga, tgat_.GatherAttn)
-    before = tgat_.gscatter_weighted.launches
+    before = tracing.counter("launches.gscatter_weighted")
     coefs = args.objects["attn_step"](**tensors)
     torch.cuda.synchronize()
-    assert tgat_.gscatter_weighted.launches >= before + 2
+    assert tracing.counter("launches.gscatter_weighted") >= before + 2
     model.fused_attention = False
     ref = args.objects["attn_step"](**tensors)
     nnz = tensors["adj"].nnz
@@ -1163,11 +1169,11 @@ def test_halo_cootile_shard_matches_plain(cuda):
     for sm, xin in ((sh.interior, x), (sh.halo_mat, recv)):
         assert sm.backend == "cootile" and sm.nnz > 0
         xr = xin.clone().requires_grad_(True)
-        before = tct.cootile_spmm.launches
+        before = tracing.counter("launches.cootile_spmm")
         y = spmm(sm, xr)
         y.backward(g)
         torch.cuda.synchronize()
-        assert tct.cootile_spmm.launches == before + 2
+        assert tracing.counter("launches.cootile_spmm") == before + 2
         _close(y.detach(), tct.cootile_spmm_plain(sm.coot, xin))
         t = sm.transpose_view()
         _close(xr.grad, tct.cootile_spmm_plain(t.coot, g))
@@ -1194,10 +1200,10 @@ def test_dist_gat_shard_matches_plain(cuda):
     h = torch.randn(dga.n_cat, H * F, generator=gen, device=cuda)
     g = torch.randn(dga.n_local, H * F, generator=gen, device=cuda)
     gl = torch.randn(dga.n_local, H, generator=gen, device=cuda)
-    before = tgat_.gscatter_weighted.launches
+    before = tracing.counter("launches.gscatter_weighted")
     out = tgat_.gather_attention(ga, f1, f2, h, num_heads=H, feat=F)
     torch.cuda.synchronize()
-    assert tgat_.gscatter_weighted.launches == before + 1
+    assert tracing.counter("launches.gscatter_weighted") == before + 1
     _close(out.cpu(), tgat_.gather_attention(
         cpu, f1.cpu(), f2.cpu(), h.cpu(), num_heads=H, feat=F), GAT_TOL)
     s_, p, live = tgat_._edge_terms(ga, f1, f2, 0.2)
@@ -1256,12 +1262,69 @@ def test_world_of_one_train_step_matches_single_device(cuda, tmp_path):
         shards, _ = pdist.shard_hops(mats, 1, mode="halo-cootile")
         train_step, _ = ptrain.build_dist_steps(
             dm, torch.optim.SGD(dm.parameters(), lr=0.5), mesh, shards)
-        before = tct.cootile_spmm.launches
+        before = tracing.counter("launches.cootile_spmm")
         got = train_step(x.to(cuda), y.to(cuda), mask.to(cuda))
         torch.cuda.synchronize()
-        assert tct.cootile_spmm.launches > before
+        assert tracing.counter("launches.cootile_spmm") > before
     finally:
         tdist.destroy_process_group()
     assert abs(float(got) - float(loss.detach())) <= 1e-4 * abs(float(loss))
     for (name, p), q in zip(dm.named_parameters(), ref.parameters()):
         _close(p.detach(), q.detach(), GAT_TOL)
+
+
+@pytest.mark.parametrize("config", ["h2gcn2", "gat"])
+def test_readbacks_are_the_epochs_syncs(cuda, small_planetoid, tmp_path,
+                                        config):
+    """Five epochs of a benchmark cell's CLI (its configuration's flags;
+    GAT on the gather payload, its route at the cell's size) at a small
+    size under ``torch.cuda.set_sync_debug_mode("warn")``: every sync of
+    the post-epoch callbacks is a ``tracing.readback``, and the counter
+    ``readbacks`` counts each. The syncs inside the train and eval steps
+    are printed with their call sites (``sync_site`` lines)."""
+    import collections
+    import json
+    import warnings
+    from pathlib import Path
+
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "benchmark"
+                      / "configs" / f"{config}.json").read_text())
+    cli = ["gather" if t == "auto" and config == "gat" else t
+           for t in cfg["cli"]]
+    args = _cli(small_planetoid, tmp_path, config, cfg["model"],
+                "--epochs", "0", *cli)
+    o = args.objects
+    args.current_epoch, args.epochs = 0, 1 << 30
+    sites = collections.Counter()
+
+    def synced(body):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                body()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [w for w in caught if "synchroniz" in str(w.message)]
+
+    def steps():
+        o["epoch_stats"] = {}
+        o["epoch_stats"].update(o["train_step"](**o["tensors"]))
+        o["epoch_stats"].update(o["test_step"](**o["tensors"]))
+
+    def post():
+        for f in o["post_epoch_callbacks"]:
+            f(args.current_epoch, args)
+
+    for _ in range(5):
+        args.current_epoch += 1
+        for w in synced(steps):
+            where = Path(w.filename)
+            sites[f"{where.parent.name}/{where.name}:{w.lineno}"] += 1
+        torch.cuda.synchronize()
+        r0 = tracing.counter("readbacks")
+        post_syncs = synced(post)
+        assert len(post_syncs) == tracing.counter("readbacks") - r0 > 0
+        assert {Path(w.filename).name for w in post_syncs} == {"tracing.py"}
+    for site, n in sorted(sites.items()):
+        print(f"sync_site {config} {site} {n / 5:g} an epoch")
