@@ -259,6 +259,7 @@ def main(argv=None):
                           first_epoch_ms=1e3 * times[0])
         print(f"===> Kernel launches: {json.dumps(record['launches'])}")
         print(f"===> Spans: {json.dumps(record['spans'])}")
+        print(f"===> Counters: {json.dumps(record['counters'])}")
         if args.use_signac and owns_files():
             args.objects["signac_job"].doc["timing"] = record
     if getattr(args, "_interactive", False):

@@ -19,6 +19,13 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
               or COO-chunk tables (:mod:`.attention_coo`). Its SpMM runs on
               the COO arrays, as ``segment``.
 
+``auto`` takes one of these from what the matrix holds
+(:func:`_auto_backend`): ``segment`` on the CPU; on CUDA ``bsr`` where its
+entries per occupied 128-block reach the measured crossover of the two
+kernels (1,200 in f32, 500 in bf16) and the payload fits 4 GiB, else
+``gscatter``. Each matrix it routes counts as ``route.<backend>``
+(:func:`~h2gcn_tpu_torch.tracing.count`).
+
 :func:`spmm` is differentiable in ``x``: its backward is ``spmm`` of the
 transpose view, which carries the transpose payload (or, for a symmetric
 matrix, is the matrix itself).
@@ -45,15 +52,80 @@ _DEFAULT_BLOCK = 128
 _BACKENDS = ("auto", "dense", "segment", "gscatter", "bsr", "cootile", "attn")
 
 
-def _auto_backend(device: torch.device) -> str:
-    """``backend='auto'``: ``segment`` on the CPU, as in the JAX package.
+# auto's route to bsr_spmm (#2) on CUDA: by precision, the entries per
+# occupied 128-block from which #2 beats gscatter (#1) at F = 64 and 128 on
+# the H100 (PERF.md section 6's crossover table), and the most bytes of BSR
+# payload, the transpose's included, that a matrix may take
+BSR_MIN_ENTRIES_PER_BLOCK = {"highest": 1200, "default": 500}
+BSR_PAYLOAD_CAP = 4 << 30
 
-    On CUDA it resolves to ``gscatter`` for now. The JAX package's
-    crossovers (dense below 8K nodes, BSR and cootile by block occupancy)
-    were measured on a TPU and do not carry over; the port keeps one
-    kernel backend until it has measured its own (ROADMAP).
+
+def block_occupancy(csr, block_size: int = _DEFAULT_BLOCK) -> Tuple[int, int]:
+    """``(occupied, fillers)`` of a scipy CSR matrix cut into ``block_size``
+    blocks: the blocks that hold an entry, and the zero blocks
+    :func:`_build_bsr` adds for block rows and columns that hold none.
+
+    Linear in the entries, whatever the size of the block grid: the
+    entries' block columns, grouped by block row through ``indptr``, are
+    transposed by a counting sort (scipy's ``tocsc``), which leaves each
+    block column's block rows sorted, so an occupied block is a change of
+    block row within a block column.
     """
-    return "segment" if device.type == "cpu" else "gscatter"
+    import scipy.sparse as sp
+
+    n, m = csr.shape
+    n_rb = max(1, -(-n // block_size))
+    n_cb = max(1, -(-m // block_size))
+    ptr = csr.indptr[np.minimum(np.arange(n_rb + 1) * block_size, n)]
+    by_row = sp.csr_matrix(
+        (np.ones(csr.indices.size, np.int8), csr.indices // block_size, ptr),
+        shape=(n_rb, n_cb))
+    by_col = by_row.tocsc()
+    idx, cptr = by_col.indices, by_col.indptr
+    first = np.ones(idx.size, dtype=bool)
+    np.not_equal(idx[1:], idx[:-1], out=first[1:])
+    live_cols = np.diff(cptr) > 0
+    first[cptr[:-1][live_cols]] = True
+    fillers = (int((np.diff(ptr) == 0).sum())
+               + n_cb - int(live_cols.sum()))
+    return int(first.sum()), fillers
+
+
+def _auto_backend(csr, *, symmetric: bool, precision: str,
+                  device_type: str) -> str:
+    """``backend='auto'``: the route of a scipy CSR matrix, from what it
+    holds.
+
+    - On the CPU: ``segment``, as in the JAX package.
+    - On CUDA: ``bsr`` (#2, dense 128-blocks) where the matrix holds at
+      least ``BSR_MIN_ENTRIES_PER_BLOCK[precision]`` entries per occupied
+      128-block and its payload (a block is 64 KiB in f32, 32 KiB in bf16;
+      the fillers count, and the transpose's blocks where the matrix is
+      not symmetric) is at most :data:`BSR_PAYLOAD_CAP`; else ``gscatter``
+      (#1).
+
+    #1 pays per entry (a gathered row of x and an add), #2 per block, so
+    the entries per occupied block decide. On the H100, F = 64 and 128,
+    the two cross at 900-1,050 entries a block in ``highest`` (f32) and at
+    330-440 in ``default`` (bf16 operands), on the 1,681 blocks of
+    squirrel's Â₂ thinned at random and on the 6,240 of the 10K
+    ``bench.py`` Â₂ (``scripts/spmm_crossover.py``). Squirrel's Â₂ (14,094
+    entries a block) runs 13-16x faster on #2; its Â₁ (258) stays on #1.
+    The JAX package's rule (``dense`` below 8K nodes, BSR from 90 entries
+    a block) was measured on a TPU; ``auto`` routes to no library kernel.
+    """
+    if device_type == "cpu":
+        return "segment"
+    least = BSR_MIN_ENTRIES_PER_BLOCK.get(precision)
+    if device_type != "cuda" or least is None or csr.nnz == 0:
+        return "gscatter"
+    occupied, fillers = block_occupancy(csr)
+    if csr.nnz < least * occupied:
+        return "gscatter"
+    itemsize = 2 if precision == "default" else 4
+    payload = ((occupied + fillers) * _DEFAULT_BLOCK ** 2 * itemsize
+               * (1 if symmetric else 2))
+    return "bsr" if payload <= BSR_PAYLOAD_CAP else "gscatter"
 
 
 @dataclasses.dataclass
@@ -194,7 +266,10 @@ class SparseMatrix:
         symmetric = bool(n == m and (abs(csr - csr.T)).nnz == 0)
 
         if backend == "auto":
-            backend = _auto_backend(device)
+            backend = _auto_backend(csr, symmetric=symmetric,
+                                    precision=precision,
+                                    device_type=device.type)
+            tracing.count("route." + backend)
 
         if backend == "dense":
             # the dense payload is authoritative; the COO arrays are no-op

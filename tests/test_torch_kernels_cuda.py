@@ -31,6 +31,7 @@ from h2gcn_tpu_torch.sparse import attention_gather as tgat_
 from h2gcn_tpu_torch.sparse import bsr_spmm as tbsr
 from h2gcn_tpu_torch.sparse import cootile as tct
 from h2gcn_tpu_torch.sparse import gscatter as tgs
+from h2gcn_tpu_torch.sparse import matrix as tmx
 
 TOL = 1e-5
 GAT_TOL = 1e-4
@@ -173,6 +174,36 @@ def test_spmm_backward_reads_transpose_payload(cuda, backend):
     assert tracing.counter(counter) > before  # the backward ran the kernel
     spmm(ref, xr).backward(g)
     _close(x.grad, xr.grad)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_auto_routes_dense_blocks_to_bsr(cuda, symmetric):
+    """A matrix whose 128-blocks are near full (squirrel's Â₂) gets ``auto``'s
+    BSR route, and the BSR payload alone: no gscatter tables. Its forward
+    and backward (the transpose payload where it is not symmetric) match
+    the plain version."""
+    a = _rand(1000, 1000, 400_000, 9)
+    if symmetric:
+        a = (a + a.T).tocsr()
+    assert a.nnz >= 2 * tmx.BSR_MIN_ENTRIES_PER_BLOCK["highest"] * 8 * 8
+    before = tracing.counter("route.bsr")
+    sm = SparseMatrix.from_scipy(a, backend="auto", device=cuda)
+    assert tracing.counter("route.bsr") == before + 1
+    assert sm.backend == "bsr" and sm.symmetric == symmetric
+    assert sm.gsc is None and sm.gsc_t is None and sm.coot is None
+    assert (sm.bsr_t is None) == symmetric
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(1000, 128, generator=gen, device=cuda,
+                    requires_grad=True)
+    g = torch.randn(1000, 128, generator=gen, device=cuda)
+    launches = tracing.counter("launches.bsr_spmm")
+    y = spmm(sm, x)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert tracing.counter("launches.bsr_spmm") == launches + 2
+    _close(y.detach(), tbsr.bsr_spmm_plain(sm.bsr, x.detach(), n_out=1000))
+    _close(x.grad, tbsr.bsr_spmm_plain(sm.transpose_view().bsr, g,
+                                       n_out=1000))
 
 
 @pytest.mark.parametrize("backend", ["gscatter", "bsr"])
@@ -1098,8 +1129,9 @@ def test_attn_step_through_the_gather_payload(cuda, small_planetoid,
 # ------------------------------------------------- the experiments pipeline
 def test_sweep_child_runs_on_the_card(cuda, tmp_path):
     """``run_model`` with the default device spawns a child that trains on
-    the card: its ``--timing`` record in the run store counts gscatter
-    launches (``auto``'s route on CUDA)."""
+    the card: its ``--timing`` record in the run store counts the routes
+    ``auto`` gave its graph's matrices (``route.<backend>``), and the
+    launches of each route's kernel."""
     from pathlib import Path
 
     from h2gcn_tpu_torch.experiments import generation, workflow
@@ -1121,7 +1153,13 @@ def test_sweep_child_runs_on_the_card(cuda, tmp_path):
     ws = Path(split_job.workspace()) / workflow.WORKSPACE_ROOT
     (run,) = get_project(str(ws)).find_jobs({"run_id": run_id})
     assert run.doc["succeeded"]
-    assert run.doc["timing"]["launches"].get("gscatter_spmm", 0) > 0
+    timing = run.doc["timing"]
+    routes = {k.split(".", 1)[1] for k, v in timing["counters"].items()
+              if k.startswith("route.") and v}
+    # the adjacency, Â₁ and Â₂ of a 120-node graph: one 128-block each
+    assert routes and routes <= {"gscatter", "bsr"}
+    for route in routes:
+        assert timing["launches"].get(route + "_spmm", 0) > 0, route
 
 
 def test_precompute_workers_match_one_on_the_card(cuda, small_planetoid,
