@@ -1,7 +1,8 @@
 """One run of one cell: the graph from the seed, the program set up through
 its own CLI, three checked training steps, the warm-up, the measured
-window (or, traced, the per-layer stretches), then the plain reference and
-the comparison, and the one result line.
+window and, where the cell reports ``epoch_device_ms``, a fixed number of
+profiled epochs after it (or, traced, the per-layer stretches), then the
+plain reference and the comparison, and the one result line.
 
 Everything that belongs to one cell is found by name: the configuration
 (``configs/<config>.json`` and its reference ``configs/<config>.py``),
@@ -34,6 +35,9 @@ CHECK_STEPS = 3
 # target seconds and its fewest and most epochs
 STRETCH_SHARE, STEPS_SHARE = 0.4, 0.2
 PROFILE_S, PROFILE_MIN, PROFILE_MAX = 2.0, 3, 50
+# the untraced run of a cell that reports ``epoch_device_ms``: the epochs
+# profiled after the window closes, a fixed count in every run
+DEVICE_EPOCHS = 50
 
 
 class NoDevice(RuntimeError):
@@ -245,14 +249,13 @@ def _traced(prog: Program, cell: Cell, graph, seconds: float, workdir: str):
     """The per-layer stretches: epochs without the profiler (a sync an
     epoch: epoch time and launches), epochs with a sync a step (step
     times), then a short profiled stretch."""
-    import torch
-
     run = types.SimpleNamespace(cell=cell, graph=graph, program=prog,
                                 config=cell.config, traffic=cell.traffic,
                                 reference=cell.reference, failed=0)
     l0 = prog.launches()
     t0, times, span, failed = _window(prog, seconds * STRETCH_SHARE)
     run.epochs = len(times)
+    run.epoch_times = times
     run.epoch_s = span / len(times)
     run.launches_per_epoch = (prog.launches() - l0) / len(times)
     run.failed += failed
@@ -267,23 +270,34 @@ def _traced(prog: Program, cell: Cell, graph, seconds: float, workdir: str):
             break
     n_prof = int(min(PROFILE_MAX, max(PROFILE_MIN,
                                       round(PROFILE_S / run.epoch_s))))
+    run.trace, failed = _profiled(prog, n_prof, workdir)
+    run.failed += failed
+    run.attempted = run.epochs + len(run.train_s) + n_prof
+    return run
+
+
+def _profiled(prog: Program, epochs: int, workdir: str):
+    """``epochs`` epochs under ``torch.profiler``, each part labelled:
+    the trace's summary (:func:`trace.summarize`) and the failed epochs."""
+    import torch
+
+    from benchmark import trace
+
     acts = [torch.profiler.ProfilerActivity.CPU]
     if prog.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     label = torch.profiler.record_function
+    failed = 0
     with torch.profiler.profile(activities=acts) as prof:
-        with label("bench_window"):
-            for _ in range(n_prof):
+        with label(trace.WINDOW):
+            for _ in range(epochs):
                 prog.train_and_eval(label)
-                run.failed += not prog.post_epoch(label)
+                failed += not prog.post_epoch(label)
     path = os.path.join(workdir, "trace.json")
     prof.export_chrome_trace(path)
-    from benchmark import trace
-
-    run.trace = trace.summarize(load_json(Path(path)))
+    summary = trace.summarize(load_json(Path(path)))
     os.remove(path)
-    run.attempted = run.epochs + len(run.train_s) + n_prof
-    return run
+    return summary, failed
 
 
 def _device_info(device: str, chips: int) -> dict:
@@ -337,10 +351,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             info = _device_info(device, cell.cell["chips"])
             values["peak_mem_gib"] = info["memory_peak_bytes"] / 2 ** 30
             result["attempted"], result["failed"] = len(times), failed
-            for m in cell.metrics(False):
-                # a dotted name is its base quantity in the cells it lists
-                value = values[m["name"].split(".")[0]]
-                result["metrics"][m["name"]] = {"value": value,
+            # a dotted name is its base quantity in the cells it lists
+            wanted = [(m, m["name"].split(".")[0])
+                      for m in cell.metrics(False)]
+            if any(base == "epoch_device_ms" for _, base in wanted):
+                summary, failed = _profiled(prog, DEVICE_EPOCHS, workdir)
+                result["attempted"] += DEVICE_EPOCHS
+                result["failed"] += failed
+                if device == "cuda":
+                    values["epoch_device_ms"] = (
+                        1e3 * summary["busy_s"] / DEVICE_EPOCHS)
+            for m, base in wanted:
+                if base == "epoch_device_ms" and device != "cuda":
+                    continue            # a card's reading: the CPU has none
+                result["metrics"][m["name"]] = {"value": values[base],
                                                 "unit": m["unit"]}
         else:
             run = _traced(prog, cell, graph, seconds, workdir)
