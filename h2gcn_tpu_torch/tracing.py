@@ -21,7 +21,8 @@ set-up runs once a run.
 A **counter** (:func:`count`) is always on: one locked dict add.
 ``launches.<wrapper>`` counts each CUDA kernel wrapper's launches
 (:func:`launched`), ``readbacks`` the epoch path's device-to-host
-conversions (:func:`readback`).
+conversions (:func:`readback`), ``route.<backend>`` each matrix
+``auto`` routes, ``gcnii.layers`` GCNII's layer forwards.
 
 Every span name the program opens is a key of :data:`SPANS`, with what
 reads it. Each CLI run (``run_experiments.main``) starts a fresh store
@@ -48,6 +49,8 @@ SPANS = {
     "step.eval": "models/_runtime.py evaluate: PERF.md section 5",
     "epoch.post": "the post-epoch callback: PERF.md section 5",
     "spmm": "sparse/matrix.py _SpMM, forward and backward: spmm_host_us",
+    "gcnii.layer": "models/GCNII.py, a layer's forward around its spmm: "
+                   "gcnii_layer_host_us",
     "attn.forward": "sparse/attention_gather.py, the gather payload: "
                     "PERF.md section 5",
     "attn.backward": "the same, backward: PERF.md section 5",

@@ -1366,3 +1366,56 @@ def test_readbacks_are_the_epochs_syncs(cuda, small_planetoid, tmp_path,
         assert {Path(w.filename).name for w in post_syncs} == {"tracing.py"}
     for site, n in sorted(sites.items()):
         print(f"sync_site {config} {site} {n / 5:g} an epoch")
+
+
+def test_gcnii_train_step_matches_the_reference_on_the_card(cuda):
+    """One GCNII train step at the published 64 layers of 64, set up through
+    the CLI (``auto``: Ã on #1) on a 20K-node arXiv-year-shaped graph,
+    against the plain reference (``benchmark/configs/gcnii.py``, the same
+    seeded weights and dropout stream): the loss, and each leaf's gradient
+    (from the optimizer's first moment, ``m = (1 - b1) g``) at 1e-4 of its
+    largest magnitude. #1 and ``torch.sparse.mm`` sum each row in another
+    order, and the error of 64 chained float32 propagations stays well under
+    that, while TF32 products miss it by orders of magnitude (PERF.md
+    section 6)."""
+    import os
+    import tempfile
+
+    from benchmark import graphs, harness, reference
+
+    traffic = dict(nodes=20000, edges=140000, features=128,
+                   feature_kind="uniform", classes=5, degree_exponent=0.6,
+                   graph_seed=0,
+                   split={"kind": "random", "train": 0.5, "val": 0.25})
+    cell = harness.Cell("gcnii.arxiv-year")
+    seed = 2400000001
+    graph = graphs.generate(traffic, seed)
+    routed = tracing.counter("route.gscatter")
+    with tempfile.TemporaryDirectory() as d, open(os.devnull, "w") as sink:
+        prog = harness.Program(cell, graph, seed, "cuda", d, sink)
+    assert tracing.counter("route.gscatter") > routed
+    (l0,), n0 = _launches("gscatter_spmm"), tracing.counter("gcnii.layers")
+    loss = float(prog.objects["train_step"](**prog.tensors)["train_loss"])
+    assert tracing.counter("gcnii.layers") - n0 == 64
+    # the 64 propagations forward and the 64 of the backward
+    assert _launches("gscatter_spmm")[0] - l0 >= 128
+    b1 = prog.optimizer.param_groups[0]["b1"]
+    got = {k: prog.optimizer.state[p]["m"] / (1.0 - b1)
+           for k, p in prog.params().items()}
+
+    inputs = reference.Inputs(graph, cuda)
+    ref = cell.reference.Model(cell.config, graph, inputs)
+    ps = harness.program_seed(seed)
+    params = {k: v.to(cuda).requires_grad_(True)
+              for k, v in ref.init_params(ps).items()}
+    logits = ref.forward(params, True,
+                         torch.Generator(device=cuda).manual_seed(ps + 1))
+    want = (reference.masked_cross_entropy(logits, inputs.y,
+                                           inputs.train_mask)
+            + ref.l2(params))
+    grads = torch.autograd.grad(want, list(params.values()))
+    assert abs(loss - float(want)) <= GAT_TOL * abs(float(want))
+    assert set(got) == set(params)
+    for k, g in zip(params, grads):
+        err = float((got[k] - g).abs().max())
+        assert err <= GAT_TOL * float(g.abs().max()), (k, err)
