@@ -18,9 +18,8 @@ Needs one CUDA GPU and nvcc; exits non-zero without them. It
    error, its tolerance, the kernel's, plain version's and
    ``torch.sparse.mm``'s times beside the card's lower bound (for BSR also
    the bound of its dense blocks), and the work items the kernel launched
-   with the table slots (gscatter) or blocks (BSR) per item; then the
-   gscatter geometry sweep at A2, F = 128 (stripe tile x features a thread
-   block);
+   with the entries (gscatter, and its split rows) or blocks (BSR) per
+   item; then the gscatter sweep at A2, F = 128 (entries a work item);
 4. trains H2GCN-2 for 5 epochs through the CLI
    (``h2gcn_tpu_torch.run_experiments.main``) on the same graph written as
    planetoid files, once with ``--sparse_backend gscatter`` and once with
@@ -363,11 +362,11 @@ def _spmm_fns(kernel):
     the same payload."""
     from h2gcn_tpu_torch.sparse.bsr_spmm import bsr_spmm, bsr_spmm_plain
     from h2gcn_tpu_torch.sparse.cootile import cootile_spmm, cootile_spmm_plain
-    from h2gcn_tpu_torch.sparse.gscatter import gscatter_spmm, gscatter_spmm_plain
+    from h2gcn_tpu_torch.sparse.gscatter import gscatter_rows_plain, gscatter_spmm
 
     if kernel == "gscatter_spmm":
         return (lambda a, v: gscatter_spmm(a.gsc, v, precision=a.precision),
-                lambda a, v, prec: gscatter_spmm_plain(a.gsc, v,
+                lambda a, v, prec: gscatter_rows_plain(a.gsc, v,
                                                        precision=prec))
     if kernel == "bsr_spmm":
         return (lambda a, v: bsr_spmm(a.bsr, v, n_out=a.shape[0],
@@ -513,30 +512,30 @@ def check_baseline_kernels(device):
     return results
 
 
-# B1's geometry sweep: stripe tile -> the features a thread block takes
-SWEEP_GSCATTER = {128: (64, 128), 256: (64, 128), 512: (32, 64)}
+# #1's sweep: the entries a work item sums
+SWEEP_GSCATTER = (128, 256, 512, 1024, 2048, 4096)
 
 
 def gscatter_sweep(mat, device, gen):
-    """The gscatter kernel at the 10K A2, F = 128, "highest", over the
-    stripe tile and the features one thread block takes (tile x width f32
-    of shared memory): the sweep that set the card's geometry."""
+    """#1 at the 10K A2, F = 128, "highest", over the entries a work item
+    sums: with ``scripts/gscatter_shapes.py``'s at arXiv-year's shapes, the
+    sweep behind ``gscatter.MAX_ITEM_ENTRIES``."""
     import torch
 
-    from h2gcn_tpu_torch.sparse.gscatter import build_gscatter, gscatter_spmm
+    from h2gcn_tpu_torch.sparse.gscatter import build_row_major, gscatter_spmm
 
     x = torch.randn(mat.shape[1], 128, generator=gen, device=device)
-    for tile, widths in SWEEP_GSCATTER.items():
+    cols = torch.from_numpy(mat.indices.astype(np.int32)).to(device)
+    vals = torch.from_numpy(mat.data.astype(np.float32)).to(device)
+    for budget in SWEEP_GSCATTER:
         t0 = time.perf_counter()
-        gs = build_gscatter(mat, tile=tile, device=device)
+        rm = build_row_major(mat.indptr, cols, vals, mat.shape[1],
+                             budget=budget)
         build_s = time.perf_counter() - t0
-        for width in widths:
-            emit(dict(_gscatter_shape(gs, 128, device, width),
-                      gscatter_sweep="A2", F=128, precision="highest",
-                      kernel_ms=time_ms(lambda: gscatter_spmm(
-                          gs, x, width=width), 20),
-                      build_s=build_s, s=time.perf_counter() - t0))
-        del gs
+        emit(dict(_gscatter_shape(rm), gscatter_sweep="A2", F=128,
+                  precision="highest",
+                  kernel_ms=time_ms(lambda: gscatter_spmm(rm, x), 20),
+                  build_s=build_s, s=time.perf_counter() - t0))
 
 
 def _times(kernel, sm, x, run, plain, lib_a, precision):
@@ -552,7 +551,7 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
     bound_ms, bound_by = _bound(sm.nnz * 12 + m * F * xbytes + n * F * 4,
                                 2 * sm.nnz * F, dtype)
     if kernel == "gscatter_spmm":
-        shape_info = _gscatter_shape(sm.gsc, F, x.device)
+        shape_info = _gscatter_shape(sm.gsc)
     elif kernel == "cootile_spmm":
         shape_info = _cootile_shape(sm.coot, sm.nnz, F, x.device,
                                     x_bytes=m * F * xbytes)
@@ -573,22 +572,16 @@ def _times(kernel, sm, x, run, plain, lib_a, precision):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _gscatter_shape(gs, F, device, width=None):
-    """What sets a gscatter SpMM's work beside its edges: the heaviest
-    stripe, and the work items the kernel launches (each walks at most a
-    budget of table slots; a heavy stripe is spread over several)."""
-    from h2gcn_tpu_torch.sparse.gscatter import work_items
-
-    w, launches = work_items(gs, F, device, width)
-    slots = np.concatenate([np.diff(ptr.cpu().numpy()) * lv.e_b
-                            for lv, _, ptr, _ in launches])
-    stripe_slots = np.concatenate([np.diff(seg.chunk_ptr.cpu().numpy())
-                                   * lv.e_b for lv, seg, _, _ in launches])
-    return {"tile": gs.tile, "width": w, "launches": len(launches),
-            "work_items": int(slots.size),
-            "max_slots_per_item": int(slots.max()),
-            "mean_slots_per_item": float(slots.mean()),
-            "max_stripe_slots": int(stripe_slots.max())}
+def _gscatter_shape(rm):
+    """What sets #1's work beside its entries: the longest row and the work
+    items (each sums about a budget of entries; a longer row is split over
+    several, its pieces added by the group that finishes the last)."""
+    per_item = np.diff(rm.items[:, 0].cpu().numpy())
+    return {"work_items": rm.n_items,
+            "max_entries_per_item": int(per_item.max()),
+            "mean_entries_per_item": float(per_item.mean()),
+            "split_rows": rm.n_split, "pieces": rm.n_slots,
+            "max_row_entries": int(rm.row_ptr.diff().max())}
 
 
 def _bsr_shape(b, F, device):

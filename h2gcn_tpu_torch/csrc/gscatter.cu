@@ -1,43 +1,43 @@
-// Gather-scatter SpMM for Hopper: y = A @ x over the gscatter chunk tables.
+// Gather-scatter SpMM for Hopper (#1): y = A @ x over the matrix's own
+// row-major entries, each destination row summed in registers.
 //
 // Replaces the TPU kernel h2gcn_tpu/sparse/pallas_gscatter.py:_make_kernel
-// (launched from _seg_fn / gscatter_spmm). It reads the same tables that
-// h2gcn_tpu_torch/sparse/gscatter.py:build_gscatter_coo produces: for each
-// tile-row destination stripe a run of e_b-slot chunks holding the
-// stripe-local destination row, the global source column and the f32 weight
-// of one edge each (padding slots carry weight 0), chunks sorted by stripe,
-// chunk_ptr[s] the first chunk of stripe s.
+// (launched from _seg_fn / gscatter_spmm), which scatters the chunk tables'
+// edges into a VMEM stripe with a one-hot contraction. It reads the payload
+// of h2gcn_tpu_torch/sparse/gscatter.py:build_row_major: a canonical CSR's
+// row pointer, column indices and values (the caller's own arrays, 8 bytes
+// an entry), and the work items that row_schedule cuts from it once.
 //
-// What bounds it on the H100: bytes. Each edge does two flops per feature
-// against 12 bytes of table and one gathered x row, far below the ridge
-// point at the widths H2GCN aggregates (64 and 128); the gathers of x rows
-// mostly hit L2.
+// What bounds it on the H100: the gathered x rows, served from L2. Each
+// entry does two flops per feature against one gathered x row (512 B at
+// F = 128 in f32) and 8 bytes of payload, far below the ridge point; the
+// hop matrices' heaviest columns cover most of their entries, so the
+// gathers mostly hit the 50 MB L2, and the payload and y stream past it
+// once.
 //
-// The design avoids the trap of one thread block per stripe: a hub stripe
-// (stripe 0 of the 10K-node A2 holds 21% of its edges) would make the
-// kernel's time that one block's time. Each thread block takes one work item
-// of the schedule that gscatter.py builds from chunk_ptr beside the tables
-// (a contiguous range of at most a budget of chunks: whole small stripes
-// packed together, a heavy stripe cut into equal parts) and one tile of
-// 32 * V features, V to a lane so a lane gathers V contiguous values at
-// once. It accumulates into a [tile, 32 * V] f32 buffer in shared memory
-// with shared-memory atomics while its chunks stay in one stripe, and
-// flushes the buffer's nonzero entries with global atomics into the zeroed
-// y when the stripe changes and at its end, so segments and overflow levels
-// are further launches into the same y. Each warp takes 32 consecutive table
-// slots at a time (coalesced), skips the padding slots with one ballot, and
-// keeps 8 row gathers in flight before it adds them. Slot and x offsets are
-// 64-bit. A block has 32 warps: on sm_90 a shared-memory f32 atomicAdd is a
-// compare-and-swap loop (ATOMS.CAST.SPIN), and the gathers and those loops
-// hide best behind many warps (the H100 sweep in PERF.md, section 6, chose
-// 32 warps, tile 128 and 128 features a block).
+// The design: a group of G lanes owns one destination row at a time, each
+// lane 4 features (16-byte loads in f32), so G follows F: 8 lanes up to
+// F = 32, 16 up to 64, 32 for a tile of 128 (wider F: one tile of 128 per
+// grid row). A warp thus sums 4, 2 or 1 rows at once, which suits short
+// rows (arXiv-year's Ã: about 15 entries a row). The group loads G
+// (column, value) pairs coalesced, hands them out by shuffle, keeps 8 row
+// gathers in flight and adds the products into f32 registers; it writes its
+// y row once with plain stores. No atomics on shared memory, and one launch
+// a call: each group takes one work item of the schedule, a run of about
+// `budget` entries (set from nnz and the SM count), so a hub row of 169K
+// entries is spread over many groups and no SM waits on one. A row cut by
+// an item boundary is summed piece by piece: each piece goes to a scratch
+// slot, and the group that finishes a row's last piece (a counter per split
+// row, reset by that group) adds the pieces in slot order and writes the
+// row: y is deterministic. Every row is written, empty ones as zeros. The
+// payload and y are streamed past the L2 (evict-first), so x keeps it.
 //
 // Precision: "highest" gathers f32 x and adds the f32 product v * x;
 // "default" gathers bf16 x and rounds the product v * x to bf16 before the
 // f32 add, where the JAX kernel rounds it (its one-hot contraction reads
-// the weighted gather in bf16). Summation order depends on the atomics'
-// order, so results match the plain PyTorch version to a tolerance, not
-// bitwise.
+// the weighted gather in bf16). The plain version sums in the same order;
+// the kernel's fused multiply-adds round once where it rounds twice, so the
+// two agree to a tolerance, not bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,175 +48,220 @@
 namespace {
 
 using h2gcn::Gather;
-using h2gcn::product;
 
-constexpr int kWarps = 32;  // more warps in flight hide the gathers best
-constexpr int kThreads = kWarps * 32;
-constexpr int kInFlight = 8;  // gathers each warp issues before it adds
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kInFlight = 8;  // gathers each group issues before it adds
+constexpr int V = 4;          // features a lane
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-gscatter_kernel(const int* __restrict__ item_ptr,
-                const int* __restrict__ item_stripe,
-                const int* __restrict__ chunk_ptr, const int* __restrict__ rows,
-                const int* __restrict__ cols, const float* __restrict__ vals,
-                const T* __restrict__ x, float* __restrict__ y, int rb_lo,
-                int tile, int e_b, int n_rows, int f, int vec) {
-  constexpr int kWidth = 32 * V;  // features per thread block
-  // [tile][V][32]: feature f0 + lane * V + e of a row at (row * V + e) * 32
-  // + lane, so the 32 lanes' adds of one e hit 32 banks
-  extern __shared__ float acc[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int f0 = blockIdx.y * kWidth;
-  const int feat = f0 + lane * V;
-  const int avail = f - feat;  // features of this lane in range (<= 0: none)
-  const int c_lo = item_ptr[blockIdx.x];
-  const int c_hi = item_ptr[blockIdx.x + 1];
-  int stripe = item_stripe[blockIdx.x];
-
-  for (int i = threadIdx.x; i < tile * kWidth; i += kThreads) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int c = c_lo; c < c_hi; ++stripe) {
-    const int run_hi = min(c_hi, chunk_ptr[stripe + 1]);
-    const int64_t s_lo = (int64_t)c * e_b;
-    const int64_t s_hi = (int64_t)run_hi * e_b;
-    for (int64_t base = s_lo + (int64_t)warp * 32; base < s_hi;
-         base += (int64_t)kThreads) {
-      const int64_t s = base + lane;
-      int r_l = 0, c_l = 0;
-      float v_l = 0.f;
-      if (s < s_hi) {
-        v_l = vals[s];
-        if (v_l != 0.f) {
-          r_l = rows[s];
-          c_l = cols[s];
-        }
-      }
-      unsigned todo = __ballot_sync(kFull, v_l != 0.f);
-      while (todo) {  // warp-uniform: the ballot's live slots
-        float xv[kInFlight][V], vv[kInFlight];
-        int rr[kInFlight];
-#pragma unroll
-        for (int u = 0; u < kInFlight; ++u) {
-          vv[u] = 0.f;
-          rr[u] = 0;
-#pragma unroll
-          for (int e = 0; e < V; ++e) xv[u][e] = 0.f;
-          if (todo) {
-            const int j = __ffs(todo) - 1;
-            todo &= todo - 1;
-            vv[u] = __shfl_sync(kFull, v_l, j);
-            rr[u] = __shfl_sync(kFull, r_l, j);
-            const int cj = __shfl_sync(kFull, c_l, j);
-            if (avail > 0) {
-              Gather<T, V>::load(x + (int64_t)cj * f + feat, avail, vec,
-                                 xv[u]);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kInFlight; ++u) {
-          if (avail > 0 && vv[u] != 0.f) {
-#pragma unroll
-            for (int e = 0; e < V; ++e) {
-              atomicAdd(&acc[(rr[u] * V + e) * 32 + lane],
-                        product<T>(vv[u], xv[u][e]));
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // flush the stripe: only entries an edge reached can be nonzero;
-    // neighbouring threads take neighbouring output columns
-    const int64_t row0 = (int64_t)(rb_lo + stripe) * tile;
-    for (int i = threadIdx.x; i < tile * kWidth; i += kThreads) {
-      const int r = i / kWidth;
-      const int col = i % kWidth;
-      const int a = (r * V + col % V) * 32 + col / V;
-      const float v = acc[a];
-      if (v != 0.f) {
-        const int64_t row = row0 + r;
-        if (row < n_rows && f0 + col < f) atomicAdd(&y[row * f + f0 + col], v);
-        acc[a] = 0.f;
-      }
-    }
-    __syncthreads();
-    c = run_hi;
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const int* item_ptr, const int* item_stripe, int n_items,
-                   const int* chunk_ptr, const int* rows, const int* cols,
-                   const float* vals, const T* x, float* y, int rb_lo,
-                   int tile, int e_b, int n_rows, int f, cudaStream_t stream) {
-  const int smem = tile * 32 * V * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gscatter_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const int vec = h2gcn::vector_gathers<T, V>(x, f);
-  const dim3 grid(n_items, (f + 32 * V - 1) / (32 * V));
-  gscatter_kernel<T, V><<<grid, kThreads, smem, stream>>>(
-      item_ptr, item_stripe, chunk_ptr, rows, cols, vals, x, y, rb_lo, tile,
-      e_b, n_rows, f, vec);
+// V features of y (or a scratch slot) at p from registers
+__device__ __forceinline__ void store_row(float* p, const float (&v)[V],
+                                          int avail, bool vec) {
+  if (vec && avail >= V) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if (e < avail) __stcs(p + e, v[e]);
+  }
+}
+
+__device__ __forceinline__ void load_slot(const float* p, int avail, bool vec,
+                                          float (&v)[V]) {
+  if (vec && avail >= V) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = e < avail ? __ldcg(p + e) : 0.f;
+}
+
+// acc += the products of entries [lo, hi) of one row, in entry order
+template <typename T, int G>
+__device__ __forceinline__ void sum_entries(
+    int lo, int hi, const int* __restrict__ cols,
+    const float* __restrict__ vals, const T* __restrict__ x, int f, int feat,
+    int avail, bool vec_x, int gl, unsigned mask, float (&acc)[V]) {
+  for (int base = lo; base < hi; base += G) {
+    const int e = base + gl;
+    int c_l = 0;
+    float v_l = 0.f;
+    if (e < hi) {
+      c_l = __ldcs(cols + e);
+      v_l = __ldcs(vals + e);
+    }
+    const int cnt = min(G, hi - base);
+    for (int j = 0; j < cnt; j += kInFlight) {  // group-uniform
+      float xv[kInFlight][V], vv[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        vv[u] = __shfl_sync(mask, v_l, j + u, G);
+        const int cj = __shfl_sync(mask, c_l, j + u, G);
+#pragma unroll
+        for (int q = 0; q < V; ++q) xv[u][q] = 0.f;
+        if (j + u < cnt && avail > 0) {
+          Gather<T, V>::load(x + (int64_t)cj * f + feat, avail, vec_x, xv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        if (j + u < cnt) h2gcn::add_products<T, V>(vv[u], xv[u], acc);
+      }
+    }
+  }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+gscatter_rows_kernel(const int4* __restrict__ items,
+                     const int2* __restrict__ splits,
+                     const int* __restrict__ row_ptr,
+                     const int* __restrict__ cols,
+                     const float* __restrict__ vals, const T* __restrict__ x,
+                     float* __restrict__ y, float* __restrict__ part,
+                     int* __restrict__ counters, int n_items, int n_rows,
+                     int f, int vec_x, int vec_y) {
+  constexpr int kGroups = kThreads / G;
+  const int gl = threadIdx.x & (G - 1);
+  const int item = blockIdx.x * kGroups + threadIdx.x / G;
+  if (item >= n_items) return;  // the whole group
+  const unsigned mask = group_mask<G>();
+  const int feat = blockIdx.y * (G * V) + gl * V;
+  const int avail = f - feat;  // features of this lane in range (<= 0: none)
+  const int4 it = items[item];
+  const int2 nx = *reinterpret_cast<const int2*>(items + item + 1);
+  const int e_lo = it.x, e_hi = nx.x;
+  // rows [it.y, nx.y) end in this item; row nx.y may begin in it
+  const int r_last = min(nx.y, n_rows - 1);
+
+  for (int rb = it.y; rb <= r_last; rb += G - 1) {
+    // the group's next G - 1 rows' bounds, one row pointer a lane
+    const int rp = row_ptr[min(rb + gl, n_rows)];
+    const int nrow = min(G - 1, r_last + 1 - rb);
+    for (int k = 0; k < nrow; ++k) {  // group-uniform
+      const int r = rb + k;
+      const int start = __shfl_sync(mask, rp, k, G);
+      const int end = __shfl_sync(mask, rp, k + 1, G);
+      if (r == nx.y && start >= e_hi) break;  // it begins in a later item
+      const bool began = start < e_lo;  // a piece: the row began before
+      const bool goes_on = end > e_hi;  // ...or goes on past this item
+      float acc[V] = {0.f, 0.f, 0.f, 0.f};
+      sum_entries<T, G>(max(start, e_lo), min(end, e_hi), cols, vals, x, f,
+                        feat, avail, vec_x, gl, mask, acc);
+      float* yrow = y + (int64_t)r * f + feat;
+      if (!began && !goes_on) {
+        if (avail > 0) store_row(yrow, acc, avail, vec_y);
+        continue;
+      }
+      // one piece of a split row: park it in its slot; the group that
+      // parks the last piece adds them all in slot order
+      const int s = began ? it.z : it.w;
+      const int2 sp = splits[s];
+      const int n_pieces = splits[s + 1].x - sp.x;
+      const int mine = item - sp.y;
+      if (avail > 0) {
+        store_row(part + (int64_t)(sp.x + mine) * f + feat, acc, avail,
+                  vec_y);
+      }
+      __threadfence();
+      __syncwarp(mask);
+      int* count = counters + (int64_t)s * gridDim.y + blockIdx.y;
+      int done = 0;
+      if (gl == 0) done = atomicAdd(count, 1);
+      done = __shfl_sync(mask, done, 0, G);
+      if (done != n_pieces - 1) continue;
+      __threadfence();
+      float sum[V] = {0.f, 0.f, 0.f, 0.f};
+      for (int p = 0; p < n_pieces; ++p) {
+        float t[V];
+        if (p == mine) {
+#pragma unroll
+          for (int q = 0; q < V; ++q) t[q] = acc[q];
+        } else if (avail > 0) {
+          load_slot(part + (int64_t)(sp.x + p) * f + feat, avail, vec_y, t);
+        } else {
+#pragma unroll
+          for (int q = 0; q < V; ++q) t[q] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) sum[q] += t[q];
+      }
+      if (avail > 0) store_row(yrow, sum, avail, vec_y);
+      if (gl == 0) *count = 0;  // for the next call
+    }
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch(const int* items, const int* splits, const int* row_ptr,
+                   const int* cols, const float* vals, const T* x, float* y,
+                   float* part, int* counters, int n_items, int n_rows, int f,
+                   cudaStream_t stream) {
+  constexpr int kGroups = kThreads / G;
+  const int vec_x = h2gcn::vector_gathers<T, V>(x, f);
+  const int vec_y = f % V == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(part) % 16 == 0;
+  const dim3 grid((n_items + kGroups - 1) / kGroups,
+                  (f + G * V - 1) / (G * V));
+  gscatter_rows_kernel<T, G><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const int4*>(items),
+      reinterpret_cast<const int2*>(splits), row_ptr, cols, vals, x, y, part,
+      counters, n_items, n_rows, f, vec_x, vec_y);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_width(int width, const int* item_ptr,
-                         const int* item_stripe, int n_items,
-                         const int* chunk_ptr, const int* rows,
-                         const int* cols, const float* vals, const T* x,
-                         float* y, int rb_lo, int tile, int e_b, int n_rows,
-                         int f, cudaStream_t stream) {
-  switch (width) {
-    case 32:
-      return launch<T, 1>(item_ptr, item_stripe, n_items, chunk_ptr, rows,
-                          cols, vals, x, y, rb_lo, tile, e_b, n_rows, f,
-                          stream);
-    case 64:
-      return launch<T, 2>(item_ptr, item_stripe, n_items, chunk_ptr, rows,
-                          cols, vals, x, y, rb_lo, tile, e_b, n_rows, f,
-                          stream);
-    case 128:
-      return launch<T, 4>(item_ptr, item_stripe, n_items, chunk_ptr, rows,
-                          cols, vals, x, y, rb_lo, tile, e_b, n_rows, f,
-                          stream);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t launch_width(const int* items, const int* splits,
+                         const int* row_ptr, const int* cols,
+                         const float* vals, const T* x, float* y, float* part,
+                         int* counters, int n_items, int n_rows, int f,
+                         cudaStream_t stream) {
+  if (f <= 8 * V) {
+    return launch<T, 8>(items, splits, row_ptr, cols, vals, x, y, part,
+                        counters, n_items, n_rows, f, stream);
   }
+  if (f <= 16 * V) {
+    return launch<T, 16>(items, splits, row_ptr, cols, vals, x, y, part,
+                         counters, n_items, n_rows, f, stream);
+  }
+  return launch<T, 32>(items, splits, row_ptr, cols, vals, x, y, part,
+                       counters, n_items, n_rows, f, stream);
 }
 
 }  // namespace
 
-// y (zeroed by the caller) += A @ x for one segment of one level. Work item
-// i walks chunks item_ptr[i]..item_ptr[i+1], the first of them in stripe
-// item_stripe[i] (relative to rb_lo); chunk_ptr[s] is the first chunk of the
-// segment's stripe s. width (32, 64 or 128) is the features of one thread
-// block; tile * width f32 must fit in shared memory. x_bf16 selects the
+// y [n_rows, f] = A @ x, every row written. items [n_items + 1] int4 and
+// splits [n_split + 1] int2 are gscatter.py:row_schedule's tables (int4- and
+// int2-aligned); row_ptr, cols and vals the row-major entries; part holds
+// a slot of f floats for each piece of a split row; counters
+// [n_split * feature tiles] are zero and left zero. x_bf16 selects the
 // bfloat16 gather ("default" precision). Returns the cudaError_t of the
 // launch.
-extern "C" int h2gcn_gscatter_spmm(const int* item_ptr, const int* item_stripe,
-                                   int n_items, const int* chunk_ptr,
-                                   const int* rows, const int* cols,
+extern "C" int h2gcn_gscatter_spmm(const int* items, const int* splits,
+                                   const int* row_ptr, const int* cols,
                                    const float* vals, const void* x,
-                                   int x_bf16, float* y, int rb_lo, int tile,
-                                   int e_b, int n_rows, int f, int width,
-                                   cudaStream_t stream) {
+                                   int x_bf16, float* y, float* part,
+                                   int* counters, int n_items, int n_rows,
+                                   int f, cudaStream_t stream) {
   if (x_bf16) {
-    return launch_width(width, item_ptr, item_stripe, n_items, chunk_ptr,
-                        rows, cols, vals,
-                        static_cast<const __nv_bfloat16*>(x), y, rb_lo, tile,
-                        e_b, n_rows, f, stream);
+    return launch_width(items, splits, row_ptr, cols, vals,
+                        static_cast<const __nv_bfloat16*>(x), y, part,
+                        counters, n_items, n_rows, f, stream);
   }
-  return launch_width(width, item_ptr, item_stripe, n_items, chunk_ptr, rows,
-                      cols, vals, static_cast<const float*>(x), y, rb_lo,
-                      tile, e_b, n_rows, f, stream);
+  return launch_width(items, splits, row_ptr, cols, vals,
+                      static_cast<const float*>(x), y, part, counters,
+                      n_items, n_rows, f, stream);
 }
 
 extern "C" const char* h2gcn_error_string(int err) {

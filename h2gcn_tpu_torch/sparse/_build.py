@@ -34,8 +34,7 @@ _L = ctypes.c_longlong
 # name -> argument types; every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
-    "h2gcn_gscatter_spmm": [_P, _P, _I] + [_P] * 5 + [_I, _P]
-                           + [_I] * 6 + [_P],
+    "h2gcn_gscatter_spmm": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
     "h2gcn_bsr_spmm": [_P, _I] + [_P] * 3 + [_I, _P, _I, _I, _I, _P],
     "h2gcn_cootile_spmm": [_P] * 7 + [_I, _P] + [_I] * 8 + [_P],
     "h2gcn_gat_coo_fwd": [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P],

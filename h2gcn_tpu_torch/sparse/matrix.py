@@ -6,7 +6,8 @@ COO arrays with sorted rows (padding entries are in-bounds no-ops with value
 
 ``dense``     the matrix as a dense tensor; ``torch.matmul``.
 ``segment``   the COO arrays alone; gather + ``index_add_``.
-``gscatter``  chunk tables for ``csrc/gscatter.cu`` (:mod:`.gscatter`).
+``gscatter``  the COO arrays' row-major entries with a row pointer and
+              work items for ``csrc/gscatter.cu`` (:mod:`.gscatter`).
 ``cootile``   COO-tile chunk tables for ``csrc/cootile_spmm.cu``
               (:mod:`.cootile`): the at-scale path for large graphs, with
               their nodes cluster-ordered (``transforms.cluster_order``).
@@ -45,7 +46,7 @@ from .attention_coo import build_attn_coo
 from .attention_gather import build_gatherattn
 from .bsr_spmm import bsr_spmm
 from .cootile import CooTile, build_cootile, cootile_spmm
-from .gscatter import SPMM_TILE, GScatter, build_gscatter, gscatter_spmm
+from .gscatter import RowMajor, build_row_major, gscatter_spmm
 
 _NNZ_BUCKET = 1024
 _DEFAULT_BLOCK = 128
@@ -173,8 +174,10 @@ class SparseMatrix:
     # CSC-order permutation of the padded COO arrays, precomputed on the
     # host; None for symmetric matrices (the transpose is the matrix)
     t_perm: Optional[torch.Tensor] = None
-    gsc: Optional[GScatter] = None
-    gsc_t: Optional[GScatter] = None
+    # #1's payload over cols and vals; the transpose's over a row-major
+    # copy of its own
+    gsc: Optional[RowMajor] = None
+    gsc_t: Optional[RowMajor] = None
     coot: Optional[CooTile] = None
     coot_t: Optional[CooTile] = None  # COO-tile tables of the transpose
     backend: str = "segment"
@@ -297,10 +300,14 @@ class SparseMatrix:
                 bsr_t = _build_bsr(sp.csr_matrix(csr.T), block_size, pdt,
                                    device)
         elif backend == "gscatter":
-            gsc = build_gscatter(csr, tile=SPMM_TILE, device=device)
+            # the forward reads the COO arrays made below; the backward a
+            # row-major copy of the transpose (int32 columns, f32 values)
             if not symmetric:
-                gsc_t = build_gscatter(sp.csr_matrix(csr.T), tile=SPMM_TILE,
-                                       device=device)
+                t = sp.csr_matrix(csr.T)
+                t.sort_indices()
+                gsc_t = build_row_major(
+                    t.indptr, torch.from_numpy(t.indices.astype(np.int32)).to(
+                        device), torch.from_numpy(t.data).to(device), n)
         elif backend == "cootile":
             # one table set serves both precisions: the geometry does not
             # depend on it
@@ -319,10 +326,14 @@ class SparseMatrix:
         if not symmetric:
             t_perm = torch.from_numpy(
                 np.argsort(cols, kind="stable").astype(np.int32)).to(device)
+        cols_d = torch.from_numpy(cols).to(device)
+        vals_d = torch.from_numpy(vals).to(device)
+        if backend == "gscatter":
+            gsc = build_row_major(csr.indptr, cols_d, vals_d, m)
         return cls(
             rows=torch.from_numpy(rows).to(device),
-            cols=torch.from_numpy(cols).to(device),
-            vals=torch.from_numpy(vals).to(device),
+            cols=cols_d,
+            vals=vals_d,
             dense=dense,
             bsr=bsr,
             bsr_t=bsr_t,

@@ -22,7 +22,10 @@ A **counter** (:func:`count`) is always on: one locked dict add.
 ``launches.<wrapper>`` counts each CUDA kernel wrapper's launches
 (:func:`launched`), ``readbacks`` the epoch path's device-to-host
 conversions (:func:`readback`), ``route.<backend>`` each matrix
-``auto`` routes, ``gcnii.layers`` GCNII's layer forwards.
+``auto`` routes, ``gcnii.layers`` GCNII's layer forwards,
+``gscatter.split_rows`` the rows that more than one of #1's work items sum
+(counted where ``sparse/gscatter.py:row_schedule`` cuts the items, once a
+payload: how often the kernel's combine of a row's pieces engages).
 
 Every span name the program opens is a key of :data:`SPANS`, with what
 reads it. Each CLI run (``run_experiments.main``) starts a fresh store

@@ -1,6 +1,7 @@
 """The crossover of the two hop SpMM kernels, gscatter (#1,
-``csrc/gscatter.cu``) and BSR (#2, ``csrc/bsr_spmm.cu``), by entries per
-occupied 128-block, on the card.
+``csrc/gscatter.cu``, each row summed in registers over the row-major
+entries) and BSR (#2, ``csrc/bsr_spmm.cu``), by entries per occupied
+128-block, on the card.
 
     python3 scripts/spmm_crossover.py [--seed 1671832396] [--calls 20]
 
@@ -113,8 +114,9 @@ def main(argv=None):
             for backend in ("gscatter", "bsr"):
                 sm = None
                 for precision in PRECISIONS:
-                    # gscatter's tables serve both precisions; the BSR
-                    # payload is stored in the precision's type
+                    # gscatter's row-major payload serves both
+                    # precisions; the BSR payload is stored in the
+                    # precision's type
                     if sm is None or backend == "bsr":
                         sm = SparseMatrix.from_scipy(
                             mat, backend=backend, precision=precision,

@@ -150,16 +150,21 @@ def test_plain_matches_jax_interpret(prec, tol, case):
 
 def test_wrapper_takes_plain_version_on_cpu_only():
     a = _rand(300, 900, seed=7)
-    gs = tgs.build_gscatter(a, tile=64, e_b=32, kb=2)
+    rm = tgs.build_row_major(a.indptr,
+                             torch.from_numpy(a.indices.astype(np.int32)),
+                             torch.from_numpy(a.data), a.shape[1], budget=64)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (300, 20)).astype(np.float32))
     before = tracing.counter("launches.gscatter_spmm")
-    got = tgs.gscatter_spmm(gs, x)
+    got = tgs.gscatter_spmm(rm, x)
     # no kernel on the CPU
     assert tracing.counter("launches.gscatter_spmm") == before
-    torch.testing.assert_close(got, tgs.gscatter_spmm_plain(gs, x))
+    torch.testing.assert_close(got, tgs.gscatter_rows_plain(rm, x))
+    # the same sum as the chunk tables of the JAX package's layout
+    torch.testing.assert_close(got, tgs.gscatter_spmm_plain(
+        tgs.build_gscatter(a, tile=64, e_b=32, kb=2), x))
     with pytest.raises(ValueError, match="unsupported device"):
-        tgs.gscatter_spmm(gs, x.to("meta"))
+        tgs.gscatter_spmm(rm, x.to("meta"))
 
 
 def _check_schedule(chunk_ptr, budget):
@@ -222,7 +227,7 @@ def test_schedule_of_every_segment_and_level():
 
 
 def test_feat_width_fits_shared_memory():
-    assert tgs.feat_width(tgs.SPMM_TILE, 128) == tgs.FEAT_WIDTH
+    assert tgs.feat_width(128, 128) == tgs.FEAT_WIDTH
     assert tgs.feat_width(512, 45) == 64 and tgs.feat_width(512, 20) == 32
     assert tgs.feat_width(256, 128, widest=128) == 128
     # 512 x 128 f32 is past the 227 KB a block can have

@@ -71,47 +71,59 @@ def _rand(n, m, nnz, seed, rows=None):
     return a
 
 
+def _row_major(a, device, budget=None):
+    return tgs.build_row_major(
+        a.indptr, torch.from_numpy(a.indices.astype(np.int32)).to(device),
+        torch.from_numpy(a.data).to(device), a.shape[1], budget=budget)
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("case", ["plain", "segments", "megahub", "ragged",
-                                  "hub_items"])
+                                  "hub_items", "wide"])
 def test_gscatter_kernel_matches_plain(cuda, case, precision):
-    kw = {}
+    budget = None
     if case == "plain":
         a, f = _rand(3000, 3000, 40000, 0), 128
     elif case == "segments":
-        a, f = _rand(5000, 4000, 60000, 1), 64
-        kw = dict(max_steps=3)
+        # many small items, their cuts moved to row ends: no row split
+        a, f, budget = _rand(5000, 4000, 60000, 1), 64, 40
     elif case == "megahub":
-        a, f = _rand(2000, 2000, 20000, 2, rows=(1024, 1536)), 64
-        kw = dict(max_steps=2)
+        # 512 rows of about 39 entries, each longer than the budget
+        a, f, budget = _rand(2000, 2000, 20000, 2, rows=(1024, 1536)), 64, 16
     elif case == "ragged":
-        # F not a multiple of 32, empty stripes, n not a multiple of 512
-        a, f = _rand(1300, 900, 5000, 3, rows=(0, 400)), 45
-    else:
-        # one stripe of 80,000 edges (many work items) beside light ones:
-        # segments and an overflow level
-        a = (_rand(3000, 3000, 80000, 8, rows=(0, 512))
-             + _rand(3000, 3000, 20000, 9)).tocsr()
+        # F not a multiple of 4, empty rows up to the last, n not a multiple
+        # of the groups a block
+        a, f, budget = _rand(1300, 900, 5000, 3, rows=(0, 400)), 45, 50
+    elif case == "hub_items":
+        # one row of about 77,000 entries (many items) beside light rows
+        a = (_rand(3000, 100_000, 80000, 8, rows=(0, 1))
+             + _rand(3000, 100_000, 20000, 9)).tocsr()
         f = 128
-        kw = dict(max_steps=40)
-    c = a.tocoo()
-    gs = tgs.build_gscatter_coo(c.row, c.col, c.data, a.shape, device=cuda,
-                                **kw)
-    if case in ("megahub", "hub_items"):
-        assert gs.overflow
-    x = torch.randn(a.shape[1], f, device=cuda)
-    before = tracing.counter("launches.gscatter_spmm")
-    got = tgs.gscatter_spmm(gs, x, precision=precision)
-    torch.cuda.synchronize()
-    levels = (gs,) + gs.overflow
-    assert tracing.counter("launches.gscatter_spmm") - before == sum(
-        len(lv.segments) for lv in levels)
-    _close(got, tgs.gscatter_spmm_plain(gs, x, precision=precision))
+    else:
+        # wider than one feature tile, rows longer than the budget
+        a, f, budget = _rand(1000, 1200, 30000, 10), 200, 8
+    rm = _row_major(a, cuda, budget)
+    if case in ("megahub", "hub_items", "wide"):
+        assert rm.n_split > 0
     if case == "hub_items":
-        assert len(gs.segments) > 1
-        # the hub stripe (stripe 0 of the first segment) took several items
-        (_, item_stripe), = gs.segments[0].schedules.values()
-        assert int((item_stripe == 0).sum()) >= 3
+        # the hub row took many items, one piece each
+        assert int(rm.splits[1, 0] - rm.splits[0, 0]) >= 50
+    if case == "segments":
+        assert rm.n_split == 0 and rm.n_items > 1000
+    x = torch.randn(a.shape[1], f, device=cuda)
+    # the output's memory held NaN before: a row the kernel skips shows
+    torch.full((a.shape[0], f), float("nan"), device=cuda)
+    before = tracing.counter("launches.gscatter_spmm")
+    got = tgs.gscatter_spmm(rm, x, precision=precision)
+    torch.cuda.synchronize()
+    assert tracing.counter("launches.gscatter_spmm") - before == 1
+    _close(got, tgs.gscatter_rows_plain(rm, x, precision=precision))
+    if case == "ragged":
+        assert (got[400:] == 0).all()
+    # the split rows' counters are left zero, and the sums deterministic
+    for counters in rm.counters.values():
+        assert not counters.any()
+    assert torch.equal(got, tgs.gscatter_spmm(rm, x, precision=precision))
 
 
 def _hub_row(n, m, seed):
@@ -219,9 +231,12 @@ def test_spmm_without_payload_raises_on_the_card(cuda, backend):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a = _rand(500, 500, 3000, 6)
-    gs = tgs.build_gscatter(a, tile=2048, device=cuda)
-    with pytest.raises(ValueError, match="tile"):
-        tgs.gscatter_spmm(gs, torch.randn(500, 8, device=cuda))
+    rm = _row_major(a, cuda)
+    with pytest.raises(ValueError, match="does not match"):
+        tgs.gscatter_spmm(rm, torch.randn(400, 8, device=cuda))
+    with pytest.raises(ValueError, match="payload is on"):
+        tgs.gscatter_spmm(_row_major(a, "cpu"),
+                          torch.randn(500, 8, device=cuda))
     sm = SparseMatrix.from_scipy(a, backend="bsr", block_size=64, device=cuda)
     with pytest.raises(ValueError, match="128-blocks"):
         tbsr.bsr_spmm(sm.bsr, torch.randn(500, 8, device=cuda), n_out=500)
@@ -993,7 +1008,7 @@ def _baseline_matrices():
 
 def _plain(backend, sm, x):
     if backend == "gscatter":
-        return tgs.gscatter_spmm_plain(sm.gsc, x)
+        return tgs.gscatter_rows_plain(sm.gsc, x)
     if backend == "bsr":
         return tbsr.bsr_spmm_plain(sm.bsr, x, n_out=sm.shape[0])
     return tct.cootile_spmm_plain(sm.coot, x)

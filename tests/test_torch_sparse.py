@@ -43,7 +43,11 @@ def test_spmm_forward_and_grad_match_jax(backend, kind):
     tm = TSM.from_scipy(a, backend=backend)
     assert tm.symmetric == (kind == "symmetric")
     if kind == "nonsymmetric" and backend == "gscatter":
-        assert tm.gsc_t is not None
+        # the backward's payload: a row-major copy of the transpose
+        t = sp.csr_matrix(a.T)
+        np.testing.assert_array_equal(tm.gsc_t.row_ptr.numpy(), t.indptr)
+        np.testing.assert_array_equal(tm.gsc_t.cols.numpy(), t.indices)
+        np.testing.assert_array_equal(tm.gsc_t.vals.numpy(), t.data)
     if kind == "nonsymmetric" and backend == "bsr":
         assert tm.bsr_t is not None
     xt = torch.from_numpy(x).requires_grad_(True)
