@@ -13,9 +13,13 @@ from the softmax. The COO-chunk kernels in "default" precision round their
 contraction operands to bf16 at the running row max where the plain
 version rounds at the final one, so they are held at 3e-2 of the output's
 scale, the JAX package's bound for its bf16 mode. The COO-tile SpMM rounds
-where its plain version rounds in both precisions and is held at 1e-5."""
+where its plain version rounds in both precisions and is held at 1e-5. The
+main path's hop matrices at full size (the 10K graph's Â₂ and the 250K
+graph's), whose rows sum thousands of entries, are held at 1e-4 in both
+precisions."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -36,6 +40,8 @@ from h2gcn_tpu_torch.sparse import matrix as tmx
 TOL = 1e-5
 GAT_TOL = 1e-4
 BF16_TOL = 3e-2
+# the main path's matrices at full size: rows of thousands of entries
+SCALE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -71,6 +77,23 @@ def _rand(n, m, nnz, seed, rows=None):
     return a
 
 
+@functools.cache
+def _main_path_matrix(name):
+    """A hop matrix of the main path at full size, built as the CLI builds
+    it: ``a2_10k``, the symmetric-normalised Â₂ of bench.py's 10K-node
+    graph; ``a2c_250k``, the 250K-node graph's Â₂ (24,999,792 entries) in
+    the cluster order of ``--reorder cluster``."""
+    import chip_smoke
+    from h2gcn_tpu_torch.sparse import transforms as tt
+
+    if name == "a2_10k":
+        return tt.normalize(tt.nhood_split(chip_smoke.build_graph(), 2)[2]
+                            ).tocsr()
+    split = tt.nhood_split(chip_smoke.scale_graph(), 2)
+    a1, a2 = (tt.normalize(split[k]).tocsr() for k in (1, 2))
+    return tt.permute_graph(a2, tt.cluster_order(abs(a1) + abs(a2)))
+
+
 def _row_major(a, device, budget=None):
     return tgs.build_row_major(
         a.indptr, torch.from_numpy(a.indices.astype(np.int32)).to(device),
@@ -79,10 +102,13 @@ def _row_major(a, device, budget=None):
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("case", ["plain", "segments", "megahub", "ragged",
-                                  "hub_items", "wide"])
+                                  "hub_items", "wide", "a2_10k"])
 def test_gscatter_kernel_matches_plain(cuda, case, precision):
-    budget = None
-    if case == "plain":
+    budget, tol = None, TOL
+    if case == "a2_10k":
+        # the main path's Â₂ at its width, forward and transpose
+        a, f, tol = _main_path_matrix(case), 128, SCALE_TOL
+    elif case == "plain":
         a, f = _rand(3000, 3000, 40000, 0), 128
     elif case == "segments":
         # many small items, their cuts moved to row ends: no row split
@@ -102,7 +128,12 @@ def test_gscatter_kernel_matches_plain(cuda, case, precision):
     else:
         # wider than one feature tile, rows longer than the budget
         a, f, budget = _rand(1000, 1200, 30000, 10), 200, 8
-    rm = _row_major(a, cuda, budget)
+    if case == "a2_10k":
+        sm = SparseMatrix.from_scipy(a, backend="gscatter",
+                                     precision=precision, device=cuda)
+        rm = sm.gsc
+    else:
+        rm = _row_major(a, cuda, budget)
     if case in ("megahub", "hub_items", "wide"):
         assert rm.n_split > 0
     if case == "hub_items":
@@ -117,13 +148,19 @@ def test_gscatter_kernel_matches_plain(cuda, case, precision):
     got = tgs.gscatter_spmm(rm, x, precision=precision)
     torch.cuda.synchronize()
     assert tracing.counter("launches.gscatter_spmm") - before == 1
-    _close(got, tgs.gscatter_rows_plain(rm, x, precision=precision))
+    _close(got, tgs.gscatter_rows_plain(rm, x, precision=precision), tol)
     if case == "ragged":
         assert (got[400:] == 0).all()
     # the split rows' counters are left zero, and the sums deterministic
     for counters in rm.counters.values():
         assert not counters.any()
     assert torch.equal(got, tgs.gscatter_spmm(rm, x, precision=precision))
+    if case == "a2_10k":
+        xr = x.clone().requires_grad_(True)
+        g = torch.randn(a.shape[0], f, device=cuda)
+        spmm(sm, xr).backward(g)
+        _close(xr.grad, tgs.gscatter_rows_plain(
+            sm.transpose_view().gsc, g, precision=precision), tol)
 
 
 def _hub_row(n, m, seed):
@@ -142,9 +179,14 @@ def _hub_row(n, m, seed):
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("case,f", [("square", 128), ("rect", 45),
-                                    ("hub_row", 45), ("hub_row", 128)])
+                                    ("hub_row", 45), ("hub_row", 128),
+                                    ("a2_10k", 128)])
 def test_bsr_kernel_matches_plain(cuda, case, f, precision):
-    if case == "square":
+    tol = TOL
+    if case == "a2_10k":
+        # the main path's Â₂ at its width, forward and transpose
+        a, tol = _main_path_matrix(case), SCALE_TOL
+    elif case == "square":
         a = _rand(1000, 1000, 30000, 4)
     elif case == "rect":
         a = _rand(700, 1300, 30000, 4)
@@ -164,9 +206,16 @@ def test_bsr_kernel_matches_plain(cuda, case, f, precision):
     torch.cuda.synchronize()
     assert tracing.counter("launches.bsr_spmm") == before + 1
     _close(got, tbsr.bsr_spmm_plain(sm.bsr, x, n_out=shape[0],
-                                    precision=precision))
+                                    precision=precision), tol)
     if case == "hub_row":
         assert (got[256:512] == 0).all()  # the filler-only rows
+    if case == "a2_10k":
+        xr = x.clone().requires_grad_(True)
+        g = torch.randn(shape[0], f, device=cuda)
+        spmm(sm, xr).backward(g)
+        _close(xr.grad, tbsr.bsr_spmm_plain(
+            sm.transpose_view().bsr, g, n_out=shape[1], precision=precision),
+            tol)
 
 
 @pytest.mark.parametrize("backend", ["gscatter", "bsr"])
@@ -787,7 +836,9 @@ def test_gat_model_at_scale_payloads_match_segment_on_the_card(cuda, impl):
 
 # (n, m, nnz, F, tile, e_b, rows): a hub tile row whose chunks span many
 # thread blocks; F = 7, 64 and 128; an empty band of tile rows; n and m not
-# multiples of the tile; a hyper-sparse matrix with e_b chosen from it
+# multiples of the tile; a hyper-sparse matrix with e_b chosen from it; the
+# 250K graph's cluster-ordered Â₂ at the main path's widths (nnz None), in
+# the default geometry
 COOTILE_CASES = [
     ("hub", 2000, 2000, 200_000, 64, 256, 128, (0, 256)),
     ("f7", 3000, 3000, 40_000, 7, 512, 128, None),
@@ -795,6 +846,8 @@ COOTILE_CASES = [
     ("empty_band", 2600, 2600, 30_000, 64, 256, 64, (0, 700)),
     ("ragged", 1300, 900, 20_000, 45, 512, 128, None),
     ("sparse_auto_eb", 5000, 5000, 6_000, 64, 512, None, None),
+    ("a2c_250k_f64", 250_000, 250_000, None, 64, None, None, None),
+    ("a2c_250k_f128", 250_000, 250_000, None, 128, None, None, None),
 ]
 
 
@@ -802,7 +855,10 @@ COOTILE_CASES = [
 @pytest.mark.parametrize("case", COOTILE_CASES, ids=lambda c: c[0])
 def test_cootile_kernel_matches_plain(cuda, case, precision):
     _, n, m, nnz, f, tile, e_b, rows = case
-    a = _rand(n, m, nnz, 11, rows=rows)
+    if nnz is None:
+        a, tol = _main_path_matrix("a2c_250k"), SCALE_TOL
+    else:
+        a, tol = _rand(n, m, nnz, 11, rows=rows), TOL
     ct = tct.build_cootile(a, tile=tile, e_b=e_b, device=cuda)
     if case[0] == "hub":
         _, per_block, _, _ = tct.work_shape(ct, f, cuda)
@@ -812,9 +868,10 @@ def test_cootile_kernel_matches_plain(cuda, case, precision):
     got = tct.cootile_spmm(ct, x, precision=precision)
     torch.cuda.synchronize()
     assert tracing.counter("launches.cootile_spmm") == before + 1
-    _close(got, tct.cootile_spmm_plain(ct, x, precision=precision))
-    # the plain version is the matrix's own product (f32 in "highest")
-    if precision == "highest":
+    _close(got, tct.cootile_spmm_plain(ct, x, precision=precision), tol)
+    # the plain version is the matrix's own product (f32 in "highest"),
+    # where the matrix fits the card as a dense one
+    if precision == "highest" and nnz is not None:
         dense = torch.from_numpy(a.toarray()).to(cuda)
         _close(got, dense @ x)
 
